@@ -11,15 +11,22 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
   1. device and toolchain: card name and power limit, torch/CUDA/nvcc
      versions; builds the CUDA kernels from kmerax_torch/csrc.
   2. each kernel (K1 bloom_insert, K2 bloom_query_solid, K3
-     correct_eval_scores) against its plain PyTorch version on the card at
-     the main path's shapes: exact integer equality (tolerance 0, all
-     outputs are integers), and the median time of each over 20 runs.
+     correct_eval_scores, K4 banded_align_scores) against its plain
+     PyTorch version on the card at its path's shapes: exact integer
+     equality (tolerance 0, all outputs are integers), and the median time
+     of each over 20 runs (K4 and its plain version: the event time per
+     call over back-to-back calls, the kernel's own device time).
   3. a small golden: the port's pipeline on the card must write corrected
-     FASTQ and unitig FASTA bytes equal to the oracle's.
+     FASTQ and unitig FASTA bytes equal to the oracle's, and the `align`
+     subcommand a TSV whose every row equals oracle.align.validate_read.
   4. BASELINE config 1 at full scale (E. coli K-12 size genome, PE150,
      50x, error rate 0.01, k=31; 2^29-counter Bloom table) through the CLI
      entry point, with launch counts of every kernel, stage rates and
      correction accuracy against the simulated truth.
+  5. BASELINE config 3 (human chr21 PE150 30x, error rate 0.005, k=31,
+     correct + assemble) on a 6.0 Mb genome, through `pipeline --validate`
+     and then the `align` subcommand, with stage walls, launch counts,
+     correction accuracy and the validate stats held to their bars.
 
 Every failure raises. The last line is {"ok": true, "device": {...}}.
 Exits nonzero without printing a result where CUDA is absent.
@@ -47,12 +54,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # table 2^ceil(log2(6 * distinct)) = 2^29 counters; batches 4096 x 160.
 C1_GENOME = 4_641_652
 C1_COVERAGE = 50
-C1_READ_LEN = 150
 C1_ERROR = 0.01
 C1_ARGS = ["-k", "31", "--bloom-log2-width", "29",
            "--exact-capacity", str(1 << 27), "--batch-reads", "4096",
            "--max-read-len", "160"]
+# BASELINE config 3 (acceptance.py CONFIGS[3]) at the size of
+# ACCEPTANCE_full_c3.json: a 6,000,000 bp genome (chr21 is 46,709,983 bp;
+# the cut keeps the smoke inside its time limit), PE150, 30x, error 0.005,
+# k=31, 1,200,000 reads. acceptance.py's rule: distinct = G + n*150*0.005*31
+# = 33,900,000, so exact_capacity 2^26 and a 2^28-counter Bloom table.
+C3_GENOME = 6_000_000
+C3_COVERAGE = 30
+C3_ERROR = 0.005
+C3_ARGS = ["-k", "31", "--bloom-log2-width", "28",
+           "--exact-capacity", str(1 << 26), "--batch-reads", "4096",
+           "--max-read-len", "160"]
 SEED = 42
+READ_LEN = 150
+# the kernels of count -> correct -> assemble (phase 4); K4 runs only on
+# the align-validate path (phase 5)
+MAIN_PATH_KERNELS = ("bloom_insert", "bloom_query_solid",
+                     "correct_eval_scores")
 
 CARD = ""          # "name, power limit" of the card, set in phase 1
 
@@ -110,6 +132,27 @@ def _median_ms(fn, runs: int = 20, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _per_launch_ms(fn, launches: int = 50, warm: int = 3):
+    """(device ms per call, host ms per call) over `launches` back-to-back
+    calls between two CUDA events: while the host enqueues faster than the
+    card runs, the event time is the kernels' own, not the wrapper's."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / launches
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches, host
 
 
 def _reads(rng, B, L, k, n_rate=0.003):
@@ -250,7 +293,78 @@ def phase_kernels(device="cuda"):
     recs.append(k3)
     del tk
     torch.cuda.empty_cache()
+    recs.append(_check_k4(rng, device))
     return recs
+
+
+def _align_inputs(rng, B, L, band):
+    """One align batch as ops/align.py::_extend_and_score hands it to K4:
+    (B, L) int32 query and target windows of a shared genome, the query
+    shifted by up to +-3 bases in a third of the rows (gaps), with 2 %
+    substitutions and Ns; lengths mostly 150, ragged rows, qlen = 0,
+    tlen = 0 and |tlen - qlen| > band rows; bases past a length are 4."""
+    import numpy as np
+
+    genome = rng.integers(0, 4, 200_000).astype(np.int32)
+    starts = rng.integers(8, len(genome) - L - 8, B)
+    shift = np.where(rng.random(B) < 1 / 3, rng.integers(-3, 4, B), 0)
+    tg = genome[starts[:, None] + np.arange(L)]
+    q = genome[(starts + shift)[:, None] + np.arange(L)]
+    q = np.where(rng.random(q.shape) < 0.02, (q + 1) % 4, q)
+    q[rng.random(q.shape) < 0.003] = 4
+    qlen = np.full(B, READ_LEN, np.int32)
+    tlen = np.full(B, READ_LEN, np.int32)
+    rag = rng.random(B) < 0.1
+    qlen[rag] = rng.integers(0, L + 1, rag.sum())
+    tlen[rag] = np.clip(qlen[rag] + rng.integers(-band, band + 1, rag.sum()),
+                        0, L)
+    far = rng.random(B) < 0.02
+    qlen[far] = L
+    tlen[far] = rng.integers(0, L - band, far.sum())
+    qlen[0], tlen[1] = 0, 0
+    ar = np.arange(L)[None, :]
+    q = np.where(ar < qlen[:, None], q, 4).astype(np.int32)
+    tg = np.where(ar < tlen[:, None], tg, 4).astype(np.int32)
+    return q, tg, qlen, tlen
+
+
+def _check_k4(rng, device):
+    """K4 at the align stage's shapes (4096 reads x 160) at the default
+    band 15 and the widest band 63 (W = 127)."""
+    import torch
+    from kmerax_torch.ops.align_kernels import NEG_INF, \
+        banded_align_scores, banded_align_scores_plain as align_plain
+
+    rec = None
+    for band in (15, 63):
+        args = [torch.as_tensor(a, device=device)
+                for a in _align_inputs(rng, 4096, 160, band)]
+        sk = banded_align_scores(*args, band)
+        torch.cuda.synchronize()
+        sp = align_plain(*args, band)
+        torch.cuda.synchronize()
+        err = int((sk.to(torch.int64) - sp.to(torch.int64)).abs().max())
+        if not torch.equal(sk, sp):
+            raise AssertionError(f"K4 scores differ from plain at band {band}")
+        n_pos, n_inf = int((sk > 0).sum()), int((sk == NEG_INF).sum())
+        if not (n_pos > 2048 and n_inf > 0):
+            raise AssertionError(f"K4 test is degenerate at band {band}: "
+                                 f"{n_pos} positive, {n_inf} NEG_INF")
+        ms, host = _per_launch_ms(lambda: banded_align_scores(*args, band))
+        pms, phost = _per_launch_ms(lambda: align_plain(*args, band), 10)
+        wms = _median_ms(lambda: banded_align_scores(*args, band))
+        num(f"phase2 K4 banded_align_scores == plain at band {band}: 4096 "
+            f"reads x 160, {n_pos} positive, {n_inf} NEG_INF; kernel "
+            f"{ms:.4f} ms per launch back to back (host {host:.4f} ms per "
+            f"call), one wrapper call {wms:.4f} ms median; plain {pms:.4f} "
+            f"ms per call (host {phost:.4f} ms)")
+        if rec is None:
+            rec = dict(name="banded_align_scores", route="cuda",
+                       source="kmerax_torch/csrc/align.cu",
+                       replaces="kmerax/ops/pallas_align.py:49",
+                       max_abs_err=err, ms=ms, plain_ms=pms)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -305,19 +419,47 @@ def phase_golden(workdir: str, device="cuda"):
         f"{res['edited_reads']} edited, {res['unitigs']} unitig(s); "
         f"FASTQ and FASTA bytes equal to the oracle's")
 
+    # the align subcommand: corrected reads back to the golden's contigs
+    from oracle.align import build_contig_index as oracle_index
+    from oracle.align import validate_read
+    from oracle.codec import seq_to_bases
+
+    tsv = os.path.join(workdir, "golden.tsv")
+    stats, _ = _cli("phase3", workdir, [
+        "align", "--in", out_fq, "--contigs", out_fa, "--out", tsv, "-k",
+        str(k), "--batch-reads", "128", "--max-read-len", "100", "--device",
+        device])
+    contigs = [seq_to_bases(ln) for ln in want.decode().splitlines()
+               if not ln.startswith(">")]
+    cat, index = oracle_index(contigs, k)
+    with open(tsv) as f:
+        rows = f.read().splitlines()
+    if len(rows) != len(reads):
+        raise AssertionError(f"align TSV has {len(rows)} rows")
+    for r, fixed, row in zip(reads, fixed_all, rows):
+        name, found, strand, pos, score, _ = row.split("\t")
+        wf, ws, wp, wsc = validate_read(fixed, cat, index, k, cfg.band)
+        if (name, int(found), int(strand), int(pos), int(score)) != \
+                (r.name, int(wf), ws, wp, wsc):
+            raise AssertionError(f"align TSV row differs from the oracle: "
+                                 f"{row!r} vs {(wf, ws, wp, wsc)}")
+    say(f"phase3 golden align: {len(rows)} TSV rows equal to "
+        f"oracle.align.validate_read; {stats}")
+
 
 # ---------------------------------------------------------------- phase 4
 
-def simulate_c1(workdir: str, coverage: int = C1_COVERAGE):
-    """Config-1 PE150 reads with the model of kmerax/bench/acceptance.py
-    (tests/sim.py simulate_pairs: insert ~ N(3*150, 150//4) clipped to
-    [300, G], R1 forward from the fragment start, R2 reverse-complement
-    from its end, uniform substitutions at 0.01, quals 30..39), drawn
-    vectorized. Writes reads_1/2.fastq; returns (paths, noisy, truth)
-    with (n, 150) uint8 arrays in file order (R1 then R2)."""
+def simulate_pairs(workdir: str, G: int, coverage: int, error: float):
+    """PE150 reads with the model of kmerax/bench/acceptance.py (tests/sim.py
+    simulate_pairs: insert ~ N(3*150, 150//4) clipped to [300, G], R1
+    forward from the fragment start, R2 reverse-complement from its end,
+    uniform substitutions at `error`, quals 30..39) on a random genome of G
+    bases, drawn vectorized. Writes reads_1/2.fastq; returns (paths, noisy,
+    truth, seq_off) with (n, 150) uint8 arrays in file order (R1 then R2)
+    and the sequence's byte offset in a record."""
     import numpy as np
 
-    G, R = C1_GENOME, C1_READ_LEN
+    R = READ_LEN
     rng = np.random.default_rng(SEED)
     genome = rng.integers(0, 4, size=G, dtype=np.int64).astype(np.uint8)
     n_pairs = (G * coverage // R) // 2
@@ -331,7 +473,7 @@ def simulate_c1(workdir: str, coverage: int = C1_COVERAGE):
     acgt = np.frombuffer(b"ACGT", np.uint8)
     paths, noisy, truth = [], [], []
     for mate, true in ((1, t1), (2, t2)):
-        errs = rng.random(true.shape) < C1_ERROR
+        errs = rng.random(true.shape) < error
         shifts = rng.integers(1, 4, true.shape).astype(np.uint8)
         b = np.where(errs, (true + shifts) % 4, true).astype(np.uint8)
         qual = (rng.integers(30, 40, true.shape) + 33).astype(np.uint8)
@@ -371,72 +513,92 @@ def _read_fixed(path: str, n: int, seq_off: int, R: int):
     return lut[raw.reshape(n, width)[:, seq_off:seq_off + R]]
 
 
-def phase_config1(workdir: str, coverage: int = C1_COVERAGE):
-    import numpy as np
-    import torch
+def _accuracy(outs, noisy, truth, seq_off):
+    """(errors_before, errors_remaining, errors_introduced, gain) of the
+    corrected FASTQ files against the simulated truth."""
+    before = after = introduced = 0
+    for p, b, tr in zip(outs, noisy, truth):
+        fixed = _read_fixed(p, len(b), seq_off, READ_LEN)
+        e0 = b != tr
+        e1 = fixed != tr
+        before += int(e0.sum())
+        after += int((e0 & e1).sum())
+        introduced += int((~e0 & e1).sum())
+    return before, after, introduced, (before - after - introduced) / max(
+        before, 1)
+
+
+def _cli(tag: str, workdir: str, argv):
+    """Run kmerax_torch.cli with argv; returns (its JSON result, wall s)."""
     from kmerax_torch.cli import main as cli_main
+
+    say(f"{tag} kmerax_torch.cli " + " ".join(
+        a if not a.startswith(workdir) else os.path.basename(a)
+        for a in argv))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
+
+
+def _stages(metrics: str) -> dict:
+    stages = {}
+    with open(metrics) as f:
+        for ln in f:
+            rec = json.loads(ln)
+            stages.setdefault(rec["stage"], []).append(rec)
+    return stages
+
+
+def _print_stages(tag: str, stages: dict) -> None:
+    cnt, cor = stages["count"][0], stages["correct"][0]
+    asm = stages["assemble"][0]
+    num(f"{tag} count: {cnt['wall_s']} s, {cnt['kmers']} k-mers, "
+        f"{cnt['kmers'] / cnt['wall_s']:.1f} k-mers/s, threshold "
+        f"{cnt['threshold']}")
+    num(f"{tag} correct: {cor['wall_s']} s, {cor['reads']} reads, "
+        f"{cor['reads'] / cor['wall_s']:.1f} reads/s, "
+        f"{cor['edited_reads']} edited, {cor['edits']} edits")
+    num(f"{tag} assemble (re-count {stages['count'][1]['wall_s']} s "
+        f"included): {asm['wall_s']} s, {asm['unitigs']} unitigs")
+
+
+def phase_config1(workdir: str, coverage: int = C1_COVERAGE):
+    import torch
     from kmerax_torch.utils import cuda
 
     if coverage != C1_COVERAGE:
         say(f"phase4 CUT: coverage {coverage}x instead of {C1_COVERAGE}x")
     t0 = time.perf_counter()
-    paths, noisy, truth, seq_off = simulate_c1(workdir, coverage)
+    paths, noisy, truth, seq_off = simulate_pairs(workdir, C1_GENOME,
+                                                  coverage, C1_ERROR)
     n_reads = sum(len(b) for b in noisy)
-    num(f"phase4 simulated {n_reads} reads (PE{C1_READ_LEN}, genome "
+    num(f"phase4 simulated {n_reads} reads (PE{READ_LEN}, genome "
         f"{C1_GENOME} bp, {coverage}x) in {time.perf_counter() - t0:.1f} s")
 
     outs = [os.path.join(workdir, f"corrected_{i + 1}.fastq")
             for i in range(2)]
     fasta = os.path.join(workdir, "contigs.fasta")
     metrics = os.path.join(workdir, "metrics.jsonl")
-    argv = ["pipeline", "--in", *paths, "--out-fastq", *outs,
-            "--out-fasta", fasta, "--metrics", metrics,
-            "--device", "cuda", *C1_ARGS]
-    say("phase4 kmerax_torch.cli " + " ".join(
-        a if not a.startswith(workdir) else os.path.basename(a)
-        for a in argv))
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli_main(argv)
-    wall = time.perf_counter() - t0
+    result, wall = _cli("phase4", workdir, [
+        "pipeline", "--in", *paths, "--out-fastq", *outs, "--out-fasta",
+        fasta, "--metrics", metrics, "--device", "cuda", *C1_ARGS])
     launches = dict(cuda.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"cli returned {rc}")
-    result = json.loads(buf.getvalue().strip().splitlines()[-1])
-    stages = {}
-    with open(metrics) as f:
-        for ln in f:
-            rec = json.loads(ln)
-            stages.setdefault(rec["stage"], []).append(rec)
-    cnt, cor = stages["count"][0], stages["correct"][0]
-    asm = stages["assemble"][0]
-    num(f"phase4 count: {cnt['wall_s']} s, {cnt['kmers']} k-mers, "
-        f"{cnt['kmers'] / cnt['wall_s']:.1f} k-mers/s, threshold "
-        f"{cnt['threshold']}")
-    num(f"phase4 correct: {cor['wall_s']} s, {cor['reads']} reads, "
-        f"{cor['reads'] / cor['wall_s']:.1f} reads/s, "
-        f"{cor['edited_reads']} edited, {cor['edits']} edits")
-    num(f"phase4 assemble (re-count {stages['count'][1]['wall_s']} s "
-        f"included): {asm['wall_s']} s, {asm['unitigs']} unitigs")
+    _print_stages("phase4", _stages(metrics))
     num(f"phase4 end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     num(f"phase4 kernel launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
 
-    before = after = introduced = 0
-    for p, b, tr in zip(outs, noisy, truth):
-        fixed = _read_fixed(p, len(b), seq_off, C1_READ_LEN)
-        e0 = b != tr
-        e1 = fixed != tr
-        before += int(e0.sum())
-        after += int((e0 & e1).sum())
-        introduced += int((~e0 & e1).sum())
-    gain = (before - after - introduced) / max(before, 1)
+    before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
     num(f"phase4 accuracy: errors_before {before}, errors_remaining "
         f"{after}, errors_introduced {introduced}, gain {gain:.4f}")
     if introduced != 0:
@@ -445,7 +607,91 @@ def phase_config1(workdir: str, coverage: int = C1_COVERAGE):
         raise AssertionError(f"gain {gain:.4f} < 0.9")
     if result["unitigs"] <= 0 or result["reads"] != n_reads:
         raise AssertionError(f"bad pipeline result {result}")
-    return launches
+    return {"config1_pipeline": launches}
+
+
+# ---------------------------------------------------------------- phase 5
+
+def phase_config3(workdir: str):
+    """Config 3 through `pipeline --validate`, then the same corrected reads
+    and contigs through the `align` subcommand. Returns each run's own
+    launches."""
+    import torch
+    from kmerax_torch.utils import cuda
+
+    t0 = time.perf_counter()
+    paths, noisy, truth, seq_off = simulate_pairs(workdir, C3_GENOME,
+                                                  C3_COVERAGE, C3_ERROR)
+    n_reads = sum(len(b) for b in noisy)
+    num(f"phase5 simulated {n_reads} reads (PE{READ_LEN}, genome "
+        f"{C3_GENOME} bp, {C3_COVERAGE}x, error {C3_ERROR}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    outs = [os.path.join(workdir, f"corrected_{i + 1}.fastq")
+            for i in range(2)]
+    fasta = os.path.join(workdir, "contigs.fasta")
+    metrics = os.path.join(workdir, "metrics.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    result, wall = _cli("phase5", workdir, [
+        "pipeline", "--in", *paths, "--out-fastq", *outs, "--out-fasta",
+        fasta, "--validate", "--metrics", metrics, "--device", "cuda",
+        *C3_ARGS])
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    stages = _stages(metrics)
+    _print_stages("phase5", stages)
+    aln = stages["align"][0]
+    num(f"phase5 align: {aln['wall_s']} s, {aln['reads']} reads, "
+        f"{aln['reads'] / aln['wall_s']:.1f} reads/s; index of "
+        f"{aln['index_kmers']} k-mers built in {aln['index_s']} s, cuckoo "
+        f"table {aln['table_bytes']} bytes")
+    with open(fasta) as f:
+        lens = sorted((len(ln) - 1 for ln in f if not ln.startswith(">")),
+                      reverse=True)
+    num(f"phase5 end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
+        f"peak device memory {peak} bytes; {result['unitigs']} unitigs, "
+        f"{sum(lens)} contig bases, longest {lens[0] if lens else 0}")
+    num(f"phase5 validate: {result['validate']}")
+    num(f"phase5 kernel launches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched")
+
+    before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
+    num(f"phase5 accuracy: errors_before {before}, errors_remaining "
+        f"{after}, errors_introduced {introduced}, gain {gain:.4f}")
+    val = result["validate"]
+    bars = [(introduced <= 0.001 * before,
+             f"errors_introduced {introduced} > 0.001 x {before}"),
+            (gain >= 0.95, f"gain {gain:.4f} < 0.95"),
+            (val["reads"] == n_reads, f"validated {val['reads']} reads"),
+            (val["aligned_frac"] >= 0.999,
+             f"aligned_frac {val['aligned_frac']} < 0.999"),
+            (val["mean_identity"] >= 0.999,
+             f"mean_identity {val['mean_identity']} < 0.999"),
+            (result["reads"] == n_reads and result["unitigs"] > 0,
+             f"bad pipeline result {result}")]
+    for ok, msg in bars:
+        if not ok:
+            raise AssertionError(msg)
+
+    # the align subcommand on the same corrected reads and contigs
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    stats, awall = _cli("phase5", workdir, [
+        "align", "--in", *outs, "--contigs", fasta, "--device", "cuda",
+        *C3_ARGS])
+    alaunch = dict(cuda.LAUNCHES)
+    num(f"phase5 align subcommand: {awall:.2f} s end to end, "
+        f"{n_reads / awall:.1f} reads/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; {stats}; launches "
+        f"{alaunch}")
+    if stats != val:
+        raise AssertionError(f"align stats {stats} != validate stats {val}")
+    if alaunch["banded_align_scores"] <= 0:
+        raise AssertionError("K4 never launched by the align subcommand")
+    return {"config3_pipeline_validate": launches, "config3_align": alaunch}
 
 
 def main() -> int:
@@ -459,14 +705,17 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_toolchain()
     recs = phase_kernels()
-    workdir = tempfile.mkdtemp(prefix="kmerax_smoke_")
-    try:
-        phase_golden(workdir)
-        launches = phase_config1(workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    paths = {}                       # path -> its own run's launches
+    for phase in (phase_golden, phase_config1, phase_config3):
+        workdir = tempfile.mkdtemp(prefix="kmerax_smoke_")
+        try:
+            paths.update(phase(workdir) or {})
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     for r in recs:
-        r["launches"] = launches[r["name"]]
+        by_path = {p: n[r["name"]] for p, n in paths.items()}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
     if "jax" in sys.modules or "kmerax" in sys.modules:
         raise AssertionError("the port pulled in jax or kmerax")
     num(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

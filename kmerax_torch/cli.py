@@ -1,8 +1,11 @@
-"""kmerax_torch command line: the `pipeline` subcommand of kmerax/cli.py
-on one device.
+"""kmerax_torch command line: the `pipeline` and `align` subcommands of
+kmerax/cli.py on one device.
 
     python -m kmerax_torch.cli pipeline --in R1.fq R2.fq \\
-        --out-fastq c1.fq c2.fq --out-fasta contigs.fa -k 31 --device cuda
+        --out-fastq c1.fq c2.fq --out-fasta contigs.fa --validate \\
+        -k 31 --device cuda
+    python -m kmerax_torch.cli align --in c1.fq c2.fq \\
+        --contigs contigs.fa --out aln.tsv -k 31 --device cuda
 
 Config precedence: defaults < --config TOML < explicit flags. `--device
 cuda` (the default) raises where CUDA is absent; `--device cpu` runs the
@@ -20,7 +23,7 @@ from kmerax_torch.config import KmeraxConfig
 
 # flags of the JAX CLI whose paths the port does not have yet
 _UNPORTED = ("mesh_data", "mesh_bucket", "coordinator", "num_procs",
-             "process_id", "k2", "validate")
+             "process_id", "k2")
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -64,13 +67,23 @@ def main(argv=None) -> int:
         description="k-mer counting, correction & assembly on one GPU "
                     "(PyTorch/CUDA port of kmerax)")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("align", help="seed-extend align/validate reads "
+                                     "against contigs (DESIGN.md 10b)")
+    _add_common(p)
+    p.add_argument("--in", dest="inputs", nargs="+", required=True)
+    p.add_argument("--contigs", required=True, help="contig FASTA")
+    p.add_argument("--out", default=None, help="per-read TSV "
+                   "(name, found, strand, pos, score, identity)")
+
     p = sub.add_parser("pipeline", help="count+correct(+assemble) end to end")
     _add_common(p)
     p.add_argument("--in", dest="inputs", nargs="+", required=True)
     p.add_argument("--out-fastq", required=True, nargs="+",
                    help="one path, or one per input file (paired-end R1/R2)")
     p.add_argument("--out-fasta", default=None)
-    p.add_argument("--validate", action="store_true", help="not yet ported")
+    p.add_argument("--validate", action="store_true",
+                   help="after assemble: seed-extend align corrected reads "
+                        "back to the contigs and report identity")
     args = ap.parse_args(argv)
 
     used = [f"--{n.replace('_', '-')}" for n in _UNPORTED
@@ -79,13 +92,26 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"not yet ported to kmerax_torch: {', '.join(used)}")
 
+    from kmerax_torch.pipeline.align import run_align
     from kmerax_torch.pipeline.run import run_pipeline
+    from kmerax_torch.utils.metrics import MetricsWriter
 
     cfg = _cfg(args)
-    out_fq = args.out_fastq[0] if len(args.out_fastq) == 1 \
-        else list(args.out_fastq)
-    result = run_pipeline(cfg, args.inputs, out_fq, args.out_fasta,
-                          metrics_path=args.metrics, device=args.device)
+    if args.cmd == "align":
+        cfg.require_ported()
+        m = MetricsWriter(args.metrics)
+        try:
+            result = run_align(cfg, args.inputs, args.contigs,
+                               out_tsv=args.out, metrics=m,
+                               device=args.device)
+        finally:
+            m.close()
+    else:
+        out_fq = args.out_fastq[0] if len(args.out_fastq) == 1 \
+            else list(args.out_fastq)
+        result = run_pipeline(cfg, args.inputs, out_fq, args.out_fasta,
+                              metrics_path=args.metrics,
+                              validate=args.validate, device=args.device)
     print(json.dumps(result))
     return 0
 

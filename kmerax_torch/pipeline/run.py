@@ -1,5 +1,5 @@
-"""Pipeline orchestrator: count -> correct -> assemble on one device (port
-of kmerax/pipeline/run.py::run_pipeline; align-validate is not ported)."""
+"""Pipeline orchestrator: count -> correct [-> assemble [-> align-validate]]
+on one device (port of kmerax/pipeline/run.py::run_pipeline)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ from typing import Optional
 
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.graph.unitig import assemble_to_fasta
+from kmerax_torch.pipeline.align import run_align
 from kmerax_torch.pipeline.correct import run_correct
 from kmerax_torch.pipeline.count import run_count
 from kmerax_torch.utils.cuda import resolve_device
@@ -15,9 +16,12 @@ from kmerax_torch.utils.metrics import MetricsWriter
 
 def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
                  out_fasta: Optional[str] = None,
-                 metrics_path: Optional[str] = None, *, device) -> dict:
-    """count -> correct [-> assemble] on `device` ('cuda' raises without a
-    card). out_fastq: one path, or one per input (paired-end R1/R2)."""
+                 metrics_path: Optional[str] = None,
+                 validate: bool = False, *, device) -> dict:
+    """count -> correct [-> assemble [-> align-validate]] on `device`
+    ('cuda' raises without a card). out_fastq: one path, or one per input
+    (paired-end R1/R2). `validate` aligns the corrected reads back to the
+    contigs and only acts when out_fasta is given, as in the JAX package."""
     cfg.require_ported()
     device = resolve_device(device)
     m = MetricsWriter(metrics_path)
@@ -33,6 +37,11 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
                                           device=device, metrics=m)
             m.stage_end("assemble", unitigs=n_unitigs)
             result["unitigs"] = n_unitigs
+            if validate:
+                corrected = out_fastq if isinstance(out_fastq, (list, tuple)) \
+                    else [out_fastq]
+                result["validate"] = run_align(cfg, corrected, out_fasta,
+                                               metrics=m, device=device)
     finally:
         m.close()
     return result

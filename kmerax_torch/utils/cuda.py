@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # CUDA kernel and nowhere else (never on its plain CPU path), so a run can
 # show that the main path went through the kernels
 LAUNCHES = {"bloom_insert": 0, "bloom_query_solid": 0,
-            "correct_eval_scores": 0}
+            "correct_eval_scores": 0, "banded_align_scores": 0}
 
 
 def reset_launches() -> None:
@@ -110,8 +110,9 @@ def lib() -> ctypes.CDLL:
     L.kmerax_bloom_query_solid.argtypes = [P, P, P, P, P, I64, I, I, P]
     L.kmerax_correct_eval_scores.argtypes = [
         P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, P, P]
+    L.kmerax_banded_align_scores.argtypes = [P, I, P, I, P, P, I64, I, P, P]
     for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_query_solid,
-               L.kmerax_correct_eval_scores):
+               L.kmerax_correct_eval_scores, L.kmerax_banded_align_scores):
         fn.restype = I
     L.kmerax_cuda_error_string.argtypes = [I]
     L.kmerax_cuda_error_string.restype = ctypes.c_char_p

@@ -23,7 +23,9 @@ def test_port_imports_no_jax():
     """The GPU machine has no jax: a stray import would only show there."""
     code = ("import kmerax_torch, kmerax_torch.cli, kmerax_torch.pipeline.run,"
             " kmerax_torch.ops.correct_kernels,"
-            " kmerax_torch.spectrum.bloom_kernels; import sys;"
+            " kmerax_torch.spectrum.bloom_kernels, kmerax_torch.ops.align,"
+            " kmerax_torch.ops.align_kernels, kmerax_torch.ops.seed_hash,"
+            " kmerax_torch.pipeline.align; import sys;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'kmerax', 'oracle')];"
             " assert not bad, bad")
@@ -61,7 +63,7 @@ def test_device_cuda_raises_without_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--mesh-data", "2"], ["--mesh-bucket", "2"],
-                                   ["--k2", "63"], ["--validate"],
+                                   ["--k2", "63"], ["--num-procs", "2"],
                                    ["--coordinator", "localhost:1234"]])
 def test_unported_flags_fail(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
