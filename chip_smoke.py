@@ -10,19 +10,28 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
 
   1. device and toolchain: card name and power limit, torch/CUDA/nvcc
      versions; builds the CUDA kernels from kmerax_torch/csrc.
-  2. each kernel (K1 bloom_insert, K2 bloom_query_solid, K3
-     correct_eval_scores, K4 banded_align_scores) against its plain
+  2. each kernel (K1 bloom_insert at k = 25, 31, 63 on a config-1 read
+     batch, K2 bloom_query_solid, K3 correct_eval_scores at k = 25, 31,
+     63, K4 banded_align_scores at band 15 and 63) against its plain
      PyTorch version on the card at its path's shapes: exact integer
-     equality (tolerance 0, all outputs are integers), and the median time
-     of each over 20 runs (K4 and its plain version: the event time per
-     call over back-to-back calls, the kernel's own device time).
+     equality (tolerance 0, all outputs are integers). Each kernel's
+     device time per launch over 50 back-to-back launches, its host time
+     per call, one wrapper call's median, the plain version's time, its
+     bound (bytes over the HBM rate or int32 operations over the int32
+     rate, counted from this run's inputs), the sector floor of its
+     counter rows, and one PyTorch call's time where one computes the
+     same function (K1: index_add_ at its lanes).
   3. a small golden: the port's pipeline on the card must write corrected
      FASTQ and unitig FASTA bytes equal to the oracle's, and the `align`
      subcommand a TSV whose every row equals oracle.align.validate_read.
   4. BASELINE config 1 at full scale (E. coli K-12 size genome, PE150,
      50x, error rate 0.01, k=31; 2^29-counter Bloom table) through the CLI
      entry point, with launch counts of every kernel, stage rates and
-     correction accuracy against the simulated truth.
+     correction accuracy against the simulated truth; then, outside the
+     launch count, the count stage's synchronised device step per batch,
+     one profiler window of 20 count and one of 20 correct batches with
+     K1-K3's device share, and K3 against its plain version on the main
+     path's own first call and at its entry count.
   5. BASELINE config 3 (human chr21 PE150 30x, error rate 0.005, k=31,
      correct + assemble) on a 6.0 Mb genome, through `pipeline --validate`
      and then the `align` subcommand, with stage walls, launch counts,
@@ -35,6 +44,7 @@ Exits nonzero without printing a result where CUDA is absent.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -55,9 +65,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 C1_GENOME = 4_641_652
 C1_COVERAGE = 50
 C1_ERROR = 0.01
-C1_ARGS = ["-k", "31", "--bloom-log2-width", "29",
-           "--exact-capacity", str(1 << 27), "--batch-reads", "4096",
-           "--max-read-len", "160"]
+C1_CFG = dict(k=31, bloom_log2_width=29, exact_capacity=1 << 27,
+              batch_reads=4096, max_read_len=160)
 # BASELINE config 3 (acceptance.py CONFIGS[3]) at the size of
 # ACCEPTANCE_full_c3.json: a 6,000,000 bp genome (chr21 is 46,709,983 bp;
 # the cut keeps the smoke inside its time limit), PE150, 30x, error 0.005,
@@ -66,9 +75,20 @@ C1_ARGS = ["-k", "31", "--bloom-log2-width", "29",
 C3_GENOME = 6_000_000
 C3_COVERAGE = 30
 C3_ERROR = 0.005
-C3_ARGS = ["-k", "31", "--bloom-log2-width", "28",
-           "--exact-capacity", str(1 << 26), "--batch-reads", "4096",
-           "--max-read-len", "160"]
+C3_CFG = dict(k=31, bloom_log2_width=28, exact_capacity=1 << 26,
+              batch_reads=4096, max_read_len=160)
+
+
+def _cli_args(cfg: dict) -> list:
+    return ["-k", str(cfg["k"]), "--bloom-log2-width",
+            str(cfg["bloom_log2_width"]), "--exact-capacity",
+            str(cfg["exact_capacity"]), "--batch-reads",
+            str(cfg["batch_reads"]), "--max-read-len",
+            str(cfg["max_read_len"])]
+
+
+C1_ARGS = _cli_args(C1_CFG)
+C3_ARGS = _cli_args(C3_CFG)
 SEED = 42
 READ_LEN = 150
 # the kernels of count -> correct -> assemble (phase 4); K4 runs only on
@@ -77,6 +97,7 @@ MAIN_PATH_KERNELS = ("bloom_insert", "bloom_query_solid",
                      "correct_eval_scores")
 
 CARD = ""          # "name, power limit" of the card, set in phase 1
+DEVICE = "cuda"    # the card (a CPU rehearsal of this script sets "cpu")
 
 
 def say(msg: str) -> None:
@@ -155,6 +176,55 @@ def _per_launch_ms(fn, launches: int = 50, warm: int = 3):
     return a.elapsed_time(b) / launches, host
 
 
+# The least time the card could take for a kernel's work (the larger of
+# bytes over the HBM rate and int32 operations over the int32 issue rate),
+# and the sector floor that random 512-byte counter rows allow.
+HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
+INT32_OPS_PER_S = 132 * 64 * 1.98e9     # 132 SMs x 64 INT32 lanes x 1.98 GHz
+SECTOR = 32                             # bytes of one DRAM sector
+# phase 2's batch (reads x length) and table (log2 counters): config 1's
+K_READS, K_LEN, K_LOG2_WIDTH = 4096, 160, 29
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by) of a function that must move `nbytes` (each
+    input read once, each output written once) and do `ops` int32
+    operations."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / INT32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def _kmer_ops(W, n_windows, n_kmers, lanes):
+    """int32 operations to address k-mers from packed words: per window the
+    W word extraction and the validity test (4W + 4); per valid k-mer the
+    canonical form (25W: reverse-complement 19, alignment 3, compare 2,
+    select 1 per word) and two murmur3 hashes (2 x (9W + 8)); per counter
+    lane its address (3) and its compare or atomic add (1)."""
+    return n_windows * (4 * W + 4) + n_kmers * (43 * W + 16) + 4 * lanes
+
+
+def _probe_traffic(table, block, lanepack, valid, d, t=None):
+    """(counters read, distinct 32-byte sectors) these k-mers need: all d
+    lanes of every valid k-mer (the insert: t=None), or a probe's lanes up
+    to and including the first below t."""
+    import torch
+
+    lanes = torch.stack([(lanepack.long() >> (7 * j)) & 127
+                         for j in range(d)], dim=-1)
+    need = valid.reshape(-1, 1).expand(-1, d).clone()
+    if t is not None:
+        below = table[block.long()[:, None] * 128 + lanes] < t
+        passed = torch.cumprod((~below).to(torch.int32), dim=1).bool()
+        need[:, 1:] &= passed[:, :-1]
+    sec = lanes >> 3                    # 8 int32 counters per sector
+    first = need.clone()
+    for j in range(1, d):
+        for i in range(j):
+            first[:, j] &= ~(need[:, i] & (sec[:, i] == sec[:, j]))
+    return int(need.sum()), int(first.sum())
+
+
 def _reads(rng, B, L, k, n_rate=0.003):
     """(B, L) int32 bases with Ns, ragged lengths >= k and 4-padding, from
     a shared genome so k-mers repeat across reads."""
@@ -175,23 +245,51 @@ def _reads(rng, B, L, k, n_rate=0.003):
     return reads.astype(np.int32), lengths
 
 
-def phase_kernels(device="cuda"):
+def _timed(fn, plain, plain_calls: int = 10) -> dict:
+    """The kernel's device ms per launch over 50 back-to-back calls and its
+    host ms per call, one wrapper call's median ms, and the plain version's
+    ms per call back to back."""
+    ms, host = _per_launch_ms(fn)
+    wms = _median_ms(fn)
+    pms, _ = _per_launch_ms(plain, plain_calls)
+    return dict(ms=ms, host_ms=host, wrapper_ms=wms, plain_ms=pms)
+
+
+def _record(name, source, replaces, err, times, nbytes, ops, floor_bytes,
+            library_ms):
+    bound, by = _bound(nbytes, ops)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, **times, bound_ms=bound, bound_by=by,
+                sector_floor_ms=None if floor_bytes is None
+                else floor_bytes / HBM_BYTES_PER_S * 1e3,
+                library_ms=library_ms)
+
+
+def _say_times(tag: str, r: dict) -> None:
+    floor = "none (no counter rows)" if r["sector_floor_ms"] is None \
+        else f"{r['sector_floor_ms']:.4f} ms"
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    num(f"{tag}: kernel {r['ms']:.4f} ms per launch back to back (host "
+        f"{r['host_ms']:.4f} ms per call; one wrapper call "
+        f"{r['wrapper_ms']:.4f} ms median); bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); sector floor {floor}; library {lib}; plain "
+        f"{r['plain_ms']:.4f} ms per call")
+
+
+def phase_kernels(device=DEVICE):
     """Kernel == plain version at main-path shapes. Returns the kernel
     records of the final JSON line (without launch counts)."""
     import numpy as np
     import torch
     from kmerax_torch.core.codec import canonical_words
     from kmerax_torch.core.kmers import extract_kmers
-    from kmerax_torch.ops.correct_kernels import correct_eval_scores, \
-        eval_scores_plain
-    from kmerax_torch.spectrum.bloom import BloomParams, blocks_lanepack, \
-        make_table
-    from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
-        bloom_query_solid, insert_plain, query_solid_plain
+    from kmerax_torch.spectrum.bloom import BloomParams, make_table
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_query_solid, query_solid_plain
 
     sync = torch.cuda.synchronize
     rng = np.random.default_rng(SEED)
-    B, L, LW, d = 4096, 160, 29, 4
+    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
 
     def addressing(params, reads):
         bases = torch.as_tensor(reads, device=device)
@@ -200,32 +298,15 @@ def phase_kernels(device="cuda"):
         block, lp = blocks_lanepack(params, canon)
         return block.reshape(-1), lp.reshape(-1), valid.reshape(-1)
 
-    recs = []
-    # K1: one 4096 x 160 batch at k=31 (532,480 k-mers) into 2^29 counters
+    recs = [_check_k1(rng, device)]
     p31 = BloomParams(31, LW, d)
-    reads, lengths = _reads(rng, B, L, 31)
+    reads, _ = _reads(rng, B, L, 31)
     blk, lp, valid = addressing(p31, reads)
     tk = make_table(p31, device)
-    bloom_insert(tk, blk, lp, valid, d)
-    sync()
-    tp = make_table(p31, device)
-    insert_plain(tp, blk, lp, valid, d)
-    sync()
-    err = int((tk - tp).abs().max())
-    if not torch.equal(tk, tp):
-        raise AssertionError(f"K1 table differs from plain (max {err})")
-    ms = _median_ms(lambda: bloom_insert(tk, blk, lp, valid, d))
-    pms = _median_ms(lambda: insert_plain(tp, blk, lp, valid, d))
-    num(f"phase2 K1 bloom_insert == plain: {blk.numel()} k-mers into "
-        f"2^{LW} counters, table bytes equal; kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms")
-    recs.append(dict(name="bloom_insert", route="cuda",
-                     source="kmerax_torch/csrc/bloom.cu",
-                     replaces="kmerax/spectrum/pallas_bloom.py:42",
-                     max_abs_err=err, ms=ms, plain_ms=pms))
-    del tp
+    _fill3(tk, p31, reads)
 
-    # K2: the same k-mers plus an unseen batch against that table at t=3
+    # K2: the batch inserted three times plus an unseen batch, against that
+    # table at t=3
     reads2, _ = _reads(rng, B, L, 31)
     blk2, lp2, valid2 = addressing(p31, reads2)
     qb, ql, qv = (torch.cat([blk, blk2]), torch.cat([lp, lp2]),
@@ -240,61 +321,193 @@ def phase_kernels(device="cuda"):
     n_solid = int(sk.sum())
     if not 0 < n_solid < qb.numel():
         raise AssertionError(f"K2 test is degenerate: {n_solid} solid")
-    ms = _median_ms(lambda: bloom_query_solid(tk, qb, ql, qv, d, 3))
-    pms = _median_ms(lambda: query_solid_plain(tk, qb, ql, qv, d, 3))
-    num(f"phase2 K2 bloom_query_solid == plain: {qb.numel()} k-mers, "
-        f"{n_solid} solid at t=3; kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    recs.append(dict(name="bloom_query_solid", route="cuda",
-                     source="kmerax_torch/csrc/bloom.cu",
-                     replaces="kmerax/spectrum/pallas_bloom.py:190",
-                     max_abs_err=err, ms=ms, plain_ms=pms))
+    n = qb.numel()
+    lanes, sectors = _probe_traffic(tk, qb, ql, qv, d, 3)
+    times = _timed(lambda: bloom_query_solid(tk, qb, ql, qv, d, 3),
+                   lambda: query_solid_plain(tk, qb, ql, qv, d, 3))
+    rec = _record("bloom_query_solid", "kmerax_torch/csrc/bloom.cu",
+                  "kmerax/spectrum/pallas_bloom.py:190", err, times,
+                  10 * n + 4 * lanes, 4 * lanes, 10 * n + SECTOR * sectors,
+                  None)
+    _say_times(f"phase2 K2 bloom_query_solid == plain: {n} k-mers, "
+               f"{n_solid} solid at t=3, {lanes} counter lanes read in "
+               f"{sectors} sectors", rec)
+    recs.append(rec)
+    del qb, ql, qv
 
-    # K3: Q = 4096 x max_cands = 16,384 entries per k, with negative window
-    # starts (positions < k-1), padding entries (-1) and reads with N
-    k3 = None
-    for k in (25, 31, 63):
-        pk = BloomParams(k, LW, d)
-        reads, lengths = _reads(rng, B, L, k)
-        blk, lp, valid = addressing(pk, reads)
-        tk.zero_()
-        for _ in range(3):
-            bloom_insert(tk, blk, lp, valid, d)
-        bases = torch.as_tensor(reads, device=device)
-        lens = torch.as_tensor(lengths, device=device)
-        last_j = lens - k
-        Q = 4 * B
-        ent_r = torch.as_tensor(rng.integers(0, B, Q).astype(np.int32),
-                                device=device)
-        ent_i = rng.integers(0, L, Q).astype(np.int32)
-        ent_i[:Q // 16] = -1
-        ent_i[Q // 16:Q // 8] = rng.integers(0, k - 1, Q // 16)
-        ent_i = torch.as_tensor(ent_i, device=device)
-        args = (pk, tk, 3, bases, lens, last_j, ent_r, ent_i)
-        sk = correct_eval_scores(*args)
-        sync()
-        sp = eval_scores_plain(*args)
-        sync()
-        err = int((sk - sp).abs().max())
-        if not torch.equal(sk, sp):
-            raise AssertionError(f"K3 scores differ from plain at k={k}")
-        if int(sk.sum()) == 0:
-            raise AssertionError(f"K3 test is degenerate at k={k}")
-        ms = _median_ms(lambda: correct_eval_scores(*args))
-        pms = _median_ms(lambda: eval_scores_plain(*args))
-        num(f"phase2 K3 correct_eval_scores == plain at k={k}: {Q} entries,"
-            f" score sum {int(sk.sum())}; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms")
-        if k == 31 or k3 is None:
-            k3 = dict(name="correct_eval_scores", route="cuda",
-                      source="kmerax_torch/csrc/correct.cu",
-                      replaces="kmerax/ops/pallas_correct.py:74",
-                      max_abs_err=err, ms=ms, plain_ms=pms)
-        k3["max_abs_err"] = max(k3["max_abs_err"], err)
-    recs.append(k3)
+    recs.append(_check_k3(rng, tk, _fill3, 4 * B, device))
     del tk
     torch.cuda.empty_cache()
     recs.append(_check_k4(rng, device))
     return recs
+
+
+def _check_k1(rng, device):
+    """K1 == its plain version on one config-1 batch (4096 x 160 int8 into
+    2^29 counters) at k = 25, 31 and 63: table bytes, the pending rows
+    written from a nonzero row offset, and the valid count. Returns the
+    kernel record at k=31, timed as the count step calls it."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import canonical_words, num_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.spectrum.bloom import BloomParams, make_table
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_insert, bloom_insert_plain
+    from kmerax_torch.spectrum.exact import sentinel_rows
+
+    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+    rec, err_max = None, 0
+    for k in (25, 31, 63):
+        p = BloomParams(k, LW, d)
+        reads, _ = _reads(rng, B, L, k)
+        bases = torch.as_tensor(reads.astype(np.int8), device=device)
+        W, rows = num_words(k), B * (L - k + 1)
+        outs = []
+        for fn in (bloom_insert, bloom_insert_plain):
+            table = make_table(p, device)
+            pending = sentinel_rows(2 * rows, W, device)
+            n_valid = fn(table, bases, p, pending, rows)
+            torch.cuda.synchronize()
+            outs.append((table, pending, n_valid))
+        (tk, pk, nk), (tp, pp, np_) = outs
+        err = max(int((tk - tp).abs().max()),
+                  int((pk.long() - pp.long()).abs().max()),
+                  abs(int(nk) - int(np_)))
+        if not (torch.equal(tk, tp) and torch.equal(pk, pp)
+                and int(nk) == int(np_)):
+            raise AssertionError(f"K1 differs from plain at k={k} (max "
+                                 f"{err})")
+        if not 0 < int(nk) < rows:
+            raise AssertionError(f"K1 test is degenerate at k={k}")
+        err_max = max(err_max, err)
+        del tp, pp
+        # the counters and sectors these k-mers touch, and the one PyTorch
+        # call that adds the same ones at precomputed flat lane indices
+        words, valid = extract_kmers(bases, k)
+        blk, lp = blocks_lanepack(p, canonical_words(words, k)[0])
+        blk, lp, valid = blk.reshape(-1), lp.reshape(-1), valid.reshape(-1)
+        lanes, sectors = _probe_traffic(tk, blk, lp, valid, d)
+        idx = (blk.long()[:, None] * 128 + torch.stack(
+            [(lp.long() >> (7 * j)) & 127 for j in range(d)], -1))[valid]
+        idx = idx.reshape(-1)
+        ones = torch.ones(idx.numel(), dtype=torch.int32, device=device)
+        lib, _ = _per_launch_ms(lambda: tk.index_add_(0, idx, ones))
+        del words, blk, lp, valid, idx, ones
+        times = _timed(lambda: bloom_insert(tk, bases, p, pk, rows),
+                       lambda: bloom_insert_plain(tk, bases, p, pk, rows))
+        io_bytes = B * L + 4 * W * rows + 8
+        r = _record("bloom_insert", "kmerax_torch/csrc/bloom.cu",
+                    "kmerax/spectrum/pallas_bloom.py:42", err, times,
+                    io_bytes + 8 * lanes,
+                    _kmer_ops(W, rows, int(nk), lanes),
+                    io_bytes + 2 * SECTOR * sectors, lib)
+        _say_times(f"phase2 K1 bloom_insert == plain at k={k}: {B} x {L} "
+                   f"int8 batch into 2^{LW} counters, table bytes, {rows} "
+                   f"pending rows from row {rows} and valid count "
+                   f"{int(nk)} equal; {lanes} counter lanes in {sectors} "
+                   f"sectors", r)
+        if k == 31:
+            rec = r
+        del tk, pk
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err_max
+    return rec
+
+
+def _k3_traffic(pk, table, t, args):
+    """(probed k-mers, counters read, distinct sectors) of one K3 call:
+    every window its plain version probes, each read up to its first lane
+    below t."""
+    from kmerax_torch.ops.correct import _eval_scores
+    from kmerax_torch.spectrum.bloom import blocks_lanepack
+
+    tot = [0, 0, 0]
+
+    def solid_fn(cw, v):
+        block, lp = blocks_lanepack(pk, cw)
+        block, lp, vf = block.reshape(-1), lp.reshape(-1), v.reshape(-1)
+        lanes, sectors = _probe_traffic(table, block, lp, vf, pk.num_hashes,
+                                        t)
+        tot[0] += int(vf.sum())
+        tot[1] += lanes
+        tot[2] += sectors
+        return v        # the scores are not used
+    _eval_scores(*args, pk.k, solid_fn)
+    return tot
+
+
+def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
+              phase="phase2"):
+    """K3 == eval_scores_plain at k in ks on Q entries over a 4096 x 160
+    batch whose k-mers `fill` inserted three times into the table `tk`:
+    negative window starts (positions < k-1), padding entries (-1) and
+    reads with N; and first, when `real` holds the arguments of a K3 call
+    on the main path, on those. Returns the record of that call, else of
+    k=31."""
+    import numpy as np
+    import torch
+    from kmerax_torch.ops.correct_kernels import correct_eval_scores, \
+        eval_scores_plain
+    from kmerax_torch.spectrum.bloom import BloomParams
+
+    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+
+    def cases():
+        if real is not None:          # first: `fill` overwrites the table
+            pk, t_real, args = real
+            yield (f"k={pk.k}, main-path call of {args[3].numel()} "
+                   f"entries", pk, t_real, args)
+        for k in ks:
+            pk = BloomParams(k, LW, d)
+            reads, lengths = _reads(rng, B, L, k)
+            fill(tk, pk, reads)
+            bases = torch.as_tensor(reads, device=device)
+            lens = torch.as_tensor(lengths, device=device)
+            ent_r = torch.as_tensor(rng.integers(0, B, Q).astype(np.int32),
+                                    device=device)
+            ent_i = rng.integers(0, L, Q).astype(np.int32)
+            ent_i[:Q // 16] = -1
+            ent_i[Q // 16:Q // 8] = rng.integers(0, k - 1, Q // 16)
+            ent_i = torch.as_tensor(ent_i, device=device)
+            yield (f"k={k}, {Q} entries", pk, 3,
+                   (bases, lens, lens - k, ent_r, ent_i))
+
+    rec = None
+    err_max = 0
+    for tag, pk, t, args in cases():
+        k = pk.k
+        sk = correct_eval_scores(pk, tk, t, *args)
+        torch.cuda.synchronize()
+        sp = eval_scores_plain(pk, tk, t, *args)
+        torch.cuda.synchronize()
+        err = int((sk - sp).abs().max())
+        if not torch.equal(sk, sp):
+            raise AssertionError(f"K3 scores differ from plain at {tag}")
+        if int(sk.sum()) == 0:
+            raise AssertionError(f"K3 test is degenerate at {tag}")
+        Qc = args[3].numel()
+        W = (k + 15) // 16
+        n_kmers, lanes, sectors = _k3_traffic(pk, tk, t, args)
+        base_bytes = 4 * min(Qc * (2 * k - 1), args[0].numel())
+        io_bytes = 8 * Qc + 8 * Qc + base_bytes + 16 * Qc
+        times = _timed(lambda: correct_eval_scores(pk, tk, t, *args),
+                       lambda: eval_scores_plain(pk, tk, t, *args), 5)
+        r = _record("correct_eval_scores", "kmerax_torch/csrc/correct.cu",
+                    "kmerax/ops/pallas_correct.py:74", err, times,
+                    io_bytes + 4 * lanes,
+                    _kmer_ops(W, n_kmers, n_kmers, lanes),
+                    io_bytes + SECTOR * sectors, None)
+        _say_times(f"{phase} K3 correct_eval_scores == plain at {tag}: "
+                   f"score "
+                   f"sum {int(sk.sum())}, {n_kmers} k-mers probed, {lanes} "
+                   f"counter lanes read in {sectors} sectors", r)
+        err_max = max(err_max, err)
+        # the main-path call's record where there is one, else k=31's
+        if rec is None or (k == 31 and real is None):
+            rec = r
+    rec["max_abs_err"] = err_max
+    return rec
 
 
 def _align_inputs(rng, B, L, band):
@@ -350,26 +563,30 @@ def _check_k4(rng, device):
         if not (n_pos > 2048 and n_inf > 0):
             raise AssertionError(f"K4 test is degenerate at band {band}: "
                                  f"{n_pos} positive, {n_inf} NEG_INF")
-        ms, host = _per_launch_ms(lambda: banded_align_scores(*args, band))
-        pms, phost = _per_launch_ms(lambda: align_plain(*args, band), 10)
-        wms = _median_ms(lambda: banded_align_scores(*args, band))
-        num(f"phase2 K4 banded_align_scores == plain at band {band}: 4096 "
-            f"reads x 160, {n_pos} positive, {n_inf} NEG_INF; kernel "
-            f"{ms:.4f} ms per launch back to back (host {host:.4f} ms per "
-            f"call), one wrapper call {wms:.4f} ms median; plain {pms:.4f} "
-            f"ms per call (host {phost:.4f} ms)")
+        # cells: the rows up to qlen of every read inside the band gate,
+        # 2 band + 1 diagonals each, ~10 int32 operations per cell (score
+        # select, three adds, three maxes, band masks)
+        q, tg, qlen, tlen = args
+        run = (tlen - qlen).abs() <= band
+        cells = int(qlen[run].long().sum()) * (2 * band + 1)
+        times = _timed(lambda: banded_align_scores(*args, band),
+                       lambda: align_plain(*args, band))
+        r = _record("banded_align_scores", "kmerax_torch/csrc/align.cu",
+                    "kmerax/ops/pallas_align.py:49", err, times,
+                    4 * (q.numel() + tg.numel()) + 12 * q.shape[0],
+                    10 * cells, None, None)
+        _say_times(f"phase2 K4 banded_align_scores == plain at band {band}: "
+                   f"4096 reads x 160, {n_pos} positive, {n_inf} NEG_INF, "
+                   f"{cells} cells", r)
         if rec is None:
-            rec = dict(name="banded_align_scores", route="cuda",
-                       source="kmerax_torch/csrc/align.cu",
-                       replaces="kmerax/ops/pallas_align.py:49",
-                       max_abs_err=err, ms=ms, plain_ms=pms)
+            rec = r
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return rec
 
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_golden(workdir: str, device="cuda"):
+def phase_golden(workdir: str, device=DEVICE):
     """tests/golden/test_pipeline.py's dataset and config through the
     port's run_pipeline; FASTQ and FASTA bytes equal to the oracle's."""
     import oracle
@@ -567,7 +784,123 @@ def _print_stages(tag: str, stages: dict) -> None:
         f"included): {asm['wall_s']} s, {asm['unitigs']} unitigs")
 
 
-def phase_config1(workdir: str, coverage: int = C1_COVERAGE):
+def _fill3(tk, pk, reads) -> None:
+    """Zero the table and insert the k-mers of `reads` three times."""
+    import numpy as np
+    import torch
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert
+
+    bases = torch.as_tensor(reads.astype(np.int8), device=tk.device)
+    tk.zero_()
+    for _ in range(3):
+        bloom_insert(tk, bases, pk)
+
+
+def _profile_window(fn, batches, names):
+    """One torch.profiler window over fn(*b) for b in batches: (host wall s,
+    device seconds of all kernels and copies, {name: device seconds of the
+    kernels whose name holds it}); device seconds are None where the
+    profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(*b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, by = 0.0, dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        total += us * 1e-6
+        for name in names:
+            if name in e.key:
+                by[name] += us * 1e-6
+    return wall, (total or None), by if total else None
+
+
+def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
+                  n_window: int = 20):
+    """The count stage's device steps on every batch of `paths`, each
+    synchronised and timed on the host clock (the parse runs in its thread
+    and is not in the time), then one profiler window of `n_window` count
+    batches and one of `n_window` correct batches against the finished
+    table. Returns (params, table, the arguments of the first correct
+    batch's first K3 call)."""
+    import torch
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.core.codec import num_words
+    from kmerax_torch.io.batcher import BackgroundBatcher
+    from kmerax_torch.ops.correct import correct_batch
+    from kmerax_torch.ops.correct_kernels import make_eval_fn
+    from kmerax_torch.pipeline.count import _count_steps, to_device_batch
+    from kmerax_torch.spectrum.bloom import make_table, query_solid
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert
+    from kmerax_torch.spectrum.exact import sentinel_rows
+
+    cfg = KmeraxConfig(**cfg_kw)
+    params, _, P, pend_rows = _count_steps(cfg, cfg.k)
+    table = make_table(params, DEVICE)
+    pending = sentinel_rows(P, num_words(cfg.k), DEVICE)
+    off, keep, secs = 0, [], []
+    for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
+        bases, lengths = to_device_batch(batch, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bloom_insert(table, bases, params, pending, off)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        off = (off + pend_rows) % P
+        if len(keep) < n_window:
+            keep.append((bases, lengths))
+    num(f"{tag} count device step, synchronised: {len(secs)} batches, "
+        f"median {statistics.median(secs) * 1e3:.4f} ms, mean "
+        f"{statistics.mean(secs) * 1e3:.4f} ms, total {sum(secs):.4f} s")
+
+    t = threshold
+    solid_fn = lambda cw, v: query_solid(params, table, t, cw, v)
+    ev = make_eval_fn(params, table, t)
+    first = []
+
+    def eval_fn(bases, lengths, last_j, ent_r, ent_i):
+        if not first:
+            first.append((bases.clone(), lengths.clone(), last_j.clone(),
+                          ent_r.to(torch.int32), ent_i.to(torch.int32)))
+        return ev(bases, lengths, last_j, ent_r, ent_i)
+
+    def correct(bases, lengths):
+        correct_batch(bases, lengths, cfg.k, t, solid_fn, rounds=cfg.rounds,
+                      max_runs=cfg.max_runs, max_edits=cfg.max_edits,
+                      eval_fn=eval_fn)
+
+    correct(*keep[0])                   # warm-up; records the K3 call
+    for stage, fn, names in (
+            ("correct", correct, ("bloom_query_solid_kernel",
+                                  "correct_eval_scores_kernel")),
+            ("count", lambda b, _: bloom_insert(table, b, params, pending, 0),
+             ("bloom_insert_kernel",))):
+        wall, dev, by = _profile_window(fn, keep, names)
+        if dev is None:
+            num(f"{tag} profiler, {len(keep)} {stage} batches: wall "
+                f"{wall:.4f} s; the profiler showed no device time")
+            continue
+        num(f"{tag} profiler, {len(keep)} {stage} batches: wall {wall:.4f} "
+            f"s, device busy {dev:.4f} s ({dev / wall:.2%}); " + ", ".join(
+                f"{n} {s:.4f} s ({s / wall:.2%} of the wall)"
+                for n, s in by.items()))
+    args = first[0]
+    num(f"{tag} first correct batch: K3 called with {args[3].numel()} "
+        f"entries, {int((args[4] >= 0).sum())} of them live")
+    return params, table, args
+
+
+def phase_config1(workdir: str, recs=None,
+                  coverage: int = C1_COVERAGE):
     import torch
     from kmerax_torch.utils import cuda
 
@@ -588,7 +921,7 @@ def phase_config1(workdir: str, coverage: int = C1_COVERAGE):
     cuda.reset_launches()
     result, wall = _cli("phase4", workdir, [
         "pipeline", "--in", *paths, "--out-fastq", *outs, "--out-fasta",
-        fasta, "--metrics", metrics, "--device", "cuda", *C1_ARGS])
+        fasta, "--metrics", metrics, "--device", DEVICE, *C1_ARGS])
     launches = dict(cuda.LAUNCHES)
     _print_stages("phase4", _stages(metrics))
     num(f"phase4 end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
@@ -607,6 +940,20 @@ def phase_config1(workdir: str, coverage: int = C1_COVERAGE):
         raise AssertionError(f"gain {gain:.4f} < 0.9")
     if result["unitigs"] <= 0 or result["reads"] != n_reads:
         raise AssertionError(f"bad pipeline result {result}")
+
+    # outside the launch count: device steps, profiler shares, and K3 on
+    # the main path's own call and at its entry count
+    import numpy as np
+
+    params, table, args = _device_steps("phase4", paths, C1_CFG,
+                                        result["threshold"])
+    k3 = _check_k3(np.random.default_rng(SEED + 3), table, _fill3,
+                   args[3].numel(), DEVICE,
+                   real=(params, result["threshold"], args), phase="phase4")
+    del table
+    torch.cuda.empty_cache()
+    if recs is not None:
+        recs[[r["name"] for r in recs].index("correct_eval_scores")] = k3
     return {"config1_pipeline": launches}
 
 
@@ -635,7 +982,7 @@ def phase_config3(workdir: str):
     cuda.reset_launches()
     result, wall = _cli("phase5", workdir, [
         "pipeline", "--in", *paths, "--out-fastq", *outs, "--out-fasta",
-        fasta, "--validate", "--metrics", metrics, "--device", "cuda",
+        fasta, "--validate", "--metrics", metrics, "--device", DEVICE,
         *C3_ARGS])
     launches = dict(cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -680,7 +1027,7 @@ def phase_config3(workdir: str):
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
     stats, awall = _cli("phase5", workdir, [
-        "align", "--in", *outs, "--contigs", fasta, "--device", "cuda",
+        "align", "--in", *outs, "--contigs", fasta, "--device", DEVICE,
         *C3_ARGS])
     alaunch = dict(cuda.LAUNCHES)
     num(f"phase5 align subcommand: {awall:.2f} s end to end, "
@@ -706,7 +1053,8 @@ def main() -> int:
     phase_toolchain()
     recs = phase_kernels()
     paths = {}                       # path -> its own run's launches
-    for phase in (phase_golden, phase_config1, phase_config3):
+    for phase in (phase_golden, functools.partial(phase_config1, recs=recs),
+                  phase_config3):
         workdir = tempfile.mkdtemp(prefix="kmerax_smoke_")
         try:
             paths.update(phase(workdir) or {})

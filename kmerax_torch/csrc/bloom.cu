@@ -1,42 +1,102 @@
 // Counting-Bloom insert (K1) and solidity probe (K2) for Hopper.
 //
 // K1 kmerax_bloom_insert replaces the Pallas kernel
-//   kmerax/spectrum/pallas_bloom.py::_insert_kernel (via insert_pallas).
+//   kmerax/spectrum/pallas_bloom.py::_insert_kernel (via insert_pallas),
+// and with it the count step's addressing that XLA fused into the Pallas
+// kernel's producer (extract, canonical form, hash; kmerax/pipeline/run.py
+// count step).
 // K2 kmerax_bloom_query_solid replaces
 //   kmerax/spectrum/pallas_bloom.py::_query_kernel (via query_solid_pallas).
 //
 // Addressing (DESIGN.md §5): every k-mer owns one 128-counter block row of
-// the int32 table and d <= 4 lanes in it, packed 7 bits each in `lanepack`.
+// the int32 table and d <= 4 lanes in it, 7 bits each of its second hash.
 // K1 adds +1 per probe (a repeated lane gets +2); K2 reports whether every
 // probed lane is >= t. Invalid k-mers add nothing and report 0.
 //
-// What bounds them on an H100: the table is 2^log2_width int32 counters,
-// 2 GiB at log2_width=29, far above the 50 MB L2, so each k-mer is a
-// random 512-byte row of device memory: one to four 32-byte sectors, with
-// atomics for K1. Both kernels are latency- and sector-bound, not ALU-bound.
-// The TPU kernel's whole design (DMA the table into VMEM, build one-hot rows
-// on the MXU, serial row RMW) exists because a TPU has no scattered
-// atomics; a GPU has them in L2, so the port is one thread per k-mer with
-// global atomicAdd (integer adds commute: table bytes equal the plain
-// index_add_ version for any order). Binning k-mers by block range to keep
-// a slab of the table in L2, and hashing inside the kernel, are later work.
+// K1 takes the read batch itself, (B, L) int8 bases, and does its own
+// addressing: eager PyTorch fuses nothing, so computing the addresses in
+// torch cost the count step ~270 dispatched ops and their int64
+// temporaries per batch around one launch. One warp per read (8 reads per
+// block): the warp packs the read once into shared memory (2-bit words and
+// an N bitmask, kmerax.cuh), then lane l takes windows l, l+32, ...: W
+// funnel shifts give the window's words, the N bits its validity, and the
+// shared helpers its canonical form and hash. Each probe is one atomicAdd
+// whose result is unused (a RED in L2). With a pending buffer the kernel
+// also writes the window's row: the canonical words, or all 0xFFFFFFFF for
+// an invalid window (the bytes of to_u32_bits(mask_invalid(...))). The
+// valid count is a ballot per warp and one 64-bit atomicAdd per block.
+//
+// What bounds K1 on an H100: the table is 2^log2_width int32 counters,
+// 2 GiB at log2_width=29, far above the 50 MB L2, so each k-mer touches
+// one random 512-byte row: ~3.6 distinct 32-byte sectors for d=4, each
+// read and written once. That sector floor, not the ~40 bytes per k-mer
+// of the byte bound, is what a kernel can approach; the addressing's
+// ~130 int32 operations per k-mer sit under it. K2 (unchanged) is bound
+// the same way by the sectors its probes read.
 
 #include "kmerax.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;    // K1: reads per block
 
+template <int W>
 __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
-                                    const int32_t* __restrict__ block,
-                                    const int32_t* __restrict__ lanepack,
-                                    const uint8_t* __restrict__ valid,
-                                    int64_t n, int d) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n || !valid[i]) return;
-    int32_t* row = table + (size_t)(uint32_t)block[i] * 128;
-    uint32_t lp = (uint32_t)lanepack[i];
-    for (int j = 0; j < d; ++j) atomicAdd(row + ((lp >> (7 * j)) & 127u), 1);
+                                    const int8_t* __restrict__ bases, int B,
+                                    int L, int k, uint32_t block_mask, int d,
+                                    uint32_t* __restrict__ pending,
+                                    int64_t off,
+                                    unsigned long long* __restrict__ n_valid) {
+    extern __shared__ uint32_t smem[];
+    __shared__ unsigned block_valid;
+    const int nch = (L + 31) / 32;           // 32-base chunks of a read
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    uint32_t* P = smem + warp * (3 * nch + 1);   // 2 nch + 1 code words
+    uint32_t* N = P + 2 * nch + 1;               // nch N-mask words
+    if (threadIdx.x == 0) block_valid = 0;
+    const int64_t r = (int64_t)blockIdx.x * kWarps + warp;
+    unsigned n_ok = 0;                       // the same on every lane
+    if (r < B) {                             // warp-uniform
+        const int8_t* row = bases + r * L;
+        for (int c = 0; c < nch; ++c) {
+            const int p = 32 * c + lane;
+            const int b = p < L ? (int)row[p] : 4;
+            kmerax_pack_chunk(P, N, c, lane, (uint32_t)b, b >= 4);
+        }
+        if (lane == 0) P[2 * nch] = 0;
+        __syncwarp();
+        const int nk = L - k + 1;
+        for (int j0 = 0; j0 < nk; j0 += 32) {
+            const int j = j0 + lane;
+            const bool in = j < nk;
+            const bool ok = in && kmerax_span_clear(N, j, k);
+            uint32_t words[W];
+            if (ok) {
+                kmerax_window_words<W>(P, j, k, words);
+                kmerax_canonicalize(words, W, k);
+                const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_1);
+                const uint32_t h2 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_2);
+                int32_t* trow = table + (size_t)(h1 & block_mask) * 128;
+                for (int i = 0; i < d; ++i)
+                    atomicAdd(trow + ((h2 >> (7 * i)) & 127u), 1);
+            }
+            if (pending != nullptr && in) {
+                uint32_t* out = pending + (off + r * nk + j) * W;
+#pragma unroll
+                for (int wi = 0; wi < W; ++wi)
+                    out[wi] = ok ? words[wi] : KMERAX_FULL_MASK;
+            }
+            n_ok += __popc(__ballot_sync(KMERAX_FULL_MASK, ok));
+        }
+    }
+    __syncthreads();
+    if (lane == 0 && n_ok) atomicAdd(&block_valid, n_ok);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_valid)
+        atomicAdd(n_valid, (unsigned long long)block_valid);
 }
 
 __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
@@ -53,16 +113,41 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
 
 unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+template <int W>
+cudaError_t launch_insert(int32_t* table, const int8_t* bases, int B, int L,
+                          int k, uint32_t block_mask, int d,
+                          uint32_t* pending, int64_t off,
+                          unsigned long long* n_valid, cudaStream_t stream) {
+    const int nch = (L + 31) / 32;
+    const size_t smem = (size_t)kWarps * (3 * nch + 1) * sizeof(uint32_t);
+    if (smem > 48 * 1024) return cudaErrorInvalidValue;
+    bloom_insert_kernel<W><<<(unsigned)((B + kWarps - 1) / kWarps), kThreads,
+                             smem, stream>>>(table, bases, B, L, k,
+                                             block_mask, d, pending, off,
+                                             n_valid);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int kmerax_bloom_insert(int32_t* table, const int32_t* block,
-                                   const int32_t* lanepack,
-                                   const uint8_t* valid, int64_t n, int d,
-                                   cudaStream_t stream) {
-    if (n > 0)
-        bloom_insert_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-            table, block, lanepack, valid, n, d);
-    return (int)cudaGetLastError();
+extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
+                                   int B, int L, int k, uint32_t block_mask,
+                                   int d, int32_t* pending, int64_t off,
+                                   int64_t* n_valid, cudaStream_t stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
+    auto* nv = reinterpret_cast<unsigned long long*>(n_valid);
+    switch ((k + 15) / 16) {
+        case 1: return (int)launch_insert<1>(table, bases, B, L, k, block_mask,
+                                             d, pend, off, nv, stream);
+        case 2: return (int)launch_insert<2>(table, bases, B, L, k, block_mask,
+                                             d, pend, off, nv, stream);
+        case 3: return (int)launch_insert<3>(table, bases, B, L, k, block_mask,
+                                             d, pend, off, nv, stream);
+        case 4: return (int)launch_insert<4>(table, bases, B, L, k, block_mask,
+                                             d, pend, off, nv, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" int kmerax_bloom_query_solid(const int32_t* table,

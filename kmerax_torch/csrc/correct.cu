@@ -13,76 +13,139 @@
 // [0, length) read as base 4 (invalid); the center is always valid; window
 // j counts only when its start lies in [0, last_j] of the read.
 //
-// Layout: one thread block per entry and one thread per (v, j): 4k <= 252
-// threads for k <= 63. The 2k-1 bases of the entry's window are loaded once
-// into shared memory; the four per-variant sums reduce in shared memory.
-// The TPU kernel's 128-lane constraints do not apply: there is no LP=256
-// row cap (any read length the config allows), no nvar/nslab split for
-// 4k > 128, and the probe is fused instead of a second pass over a
-// (Q, 128) lane plane in device memory.
-//
-// What bounds it on an H100: each thread makes one random 512-byte-row
-// probe (d lanes) into a table far above L2 size, so the kernel is bound by
-// the latency of 4kQ scattered sector reads; the k-mer build, canonical
-// form and hash are a few hundred integer operations per thread, well under
-// the SM's issue rate at that memory parallelism.
+// What bounds it on an H100: 4k probes per entry, each into a random
+// 512-byte row of a table far above the 50 MB L2, so the floor is the
+// sectors the probes read: one for most substituted k-mers, which are not
+// solid, up to d for solid ones. Around each probe sit ~130 int32
+// operations of canonical form and hash, so at 16,384 entries the int32
+// issue rate and the sector floor are of one size (chip_smoke.py prints
+// both). What the design does about it:
+// - Packing: the entry's 2k-1 bases are packed once into shared memory as
+//   2-bit words and an N mask (kmerax.cuh), the center as code 0 and valid.
+//   A (v, j) thread takes its k-mer's W words with funnel shifts and ORs v
+//   into one word at the center's offset (word j/16, bit 2(j%16)): O(W)
+//   work, where a loop over k bases with a per-base branch was ~170 of its
+//   ~260 operations.
+// - Probe in two rounds: lane 0 first; only if it is >= t are the other
+//   d-1 lanes loaded, together. A non-solid k-mer reads one sector, and a
+//   solid one waits on two trips to memory instead of d dependent ones.
+// - Layout: one warp per (entry, variant) for k <= 32, two for k <= 63;
+//   blocks of 256 threads hold 2 or 1 entries. score[v] is the popcount of
+//   the variant's warp ballots: no shared-memory atomics.
+// The TPU kernel's 128-lane layout (lane v*k+j, the nvar/nslab split, the
+// LP=256 row cap) does not carry over.
 
 #include "kmerax.cuh"
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSpanChunks = 4;           // 2k-1 <= 125 bases: 4 chunks of 32
+
+// both lanes of the d <= 4 probe, in two rounds
+static __device__ __forceinline__ bool probe_two_rounds(const int32_t* table,
+                                                        uint32_t block,
+                                                        uint32_t h2, int d,
+                                                        int t) {
+    const int32_t* row = table + (size_t)block * 128;
+    if (__ldg(row + (h2 & 127u)) < t) return false;
+    bool solid = true;
+#pragma unroll
+    for (int i = 1; i < 4; ++i)
+        if (i < d) solid &= __ldg(row + ((h2 >> (7 * i)) & 127u)) >= t;
+    return solid;
+}
+
+// WPV warps per (entry, variant): 1 for k <= 32, 2 for k <= 63
+template <int W, int WPV>
 __global__ void correct_eval_scores_kernel(
     const int32_t* __restrict__ bases, int L,
     const int32_t* __restrict__ lengths, const int32_t* __restrict__ last_j,
     const int32_t* __restrict__ ent_r, const int32_t* __restrict__ ent_i,
-    const int32_t* __restrict__ table, uint32_t block_mask, int d, int t,
-    int k, int32_t* __restrict__ scores) {
-    __shared__ int32_t wb[128];              // 2k-1 <= 125 window bases
-    __shared__ int32_t sc[4];
-    const int64_t q = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int r = ent_r[q];
-    const int ic = min(max(ent_i[q], 0), L - 1);
-    // the batcher rejects reads longer than L; the min keeps a bad length
-    // from reading into the next row
-    const int len = min(lengths[r], L);
-    const int c = ic - (k - 1);              // window start, may be < 0
-    if (tid < 2 * k - 1) {
-        const int p = c + tid;
-        wb[tid] = (p >= 0 && p < len) ? bases[(int64_t)r * L + p] : 4;
+    int64_t Q, const int32_t* __restrict__ table, uint32_t block_mask, int d,
+    int t, int k, int32_t* __restrict__ scores) {
+    constexpr int kWarpsPerEntry = 4 * WPV;
+    constexpr int kEntries = kWarps / kWarpsPerEntry;
+    __shared__ uint32_t sP[kEntries][2 * kSpanChunks + 1];
+    __shared__ uint32_t sN[kEntries][kSpanChunks];
+    __shared__ int sCount[kWarps];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int e = warp / kWarpsPerEntry;     // entry within the block
+    const int we = warp % kWarpsPerEntry;    // warp within the entry
+    const int v = we / WPV;                  // center substitution
+    const int j = (we % WPV) * 32 + lane;    // window
+    const int64_t q = (int64_t)blockIdx.x * kEntries + e;
+    const bool live = q < Q;                 // warp-uniform
+
+    int r = 0, c = 0, lj = -1;
+    if (live) {
+        r = ent_r[q];
+        lj = last_j[r];                      // loaded before the barrier
+        const int ic = min(max(ent_i[q], 0), L - 1);
+        c = ic - (k - 1);                    // window start, may be < 0
+        // the batcher rejects reads longer than L; the min keeps a bad
+        // length from reading into the next row
+        const int len = min(lengths[r], L);
+        const int span = 2 * k - 1;
+        if (we < (span + 31) / 32) {         // one warp per 32-base chunk
+            const int i = 32 * we + lane;    // span-relative position
+            const int p = c + i;
+            int b = (p >= 0 && p < len) ? bases[(int64_t)r * L + p] : 4;
+            bool bad = b >= 4 || i >= span;
+            if (i == k - 1) { b = 0; bad = false; }   // the center
+            kmerax_pack_chunk(sP[e], sN[e], we, lane, (uint32_t)b, bad);
+            if (lane == 0 && we == (span + 31) / 32 - 1)
+                sP[e][2 * we + 2] = 0;
+        }
     }
-    if (tid < 4) sc[tid] = 0;
     __syncthreads();
 
-    const int v = tid / k;
-    const int j = tid - v * k;
-    const int jg = c + j;                    // global window index
-    if (v < 4 && jg >= 0 && jg <= last_j[r]) {
-        // word wi folds window-relative positions [lo, hi), leftmost base
-        // in the highest bits (kmerax_torch/core/kmers.py)
-        const int W = (k + 15) / 16;
-        uint32_t words[KMERAX_MAX_WORDS];
-        bool ok = true;
-        for (int wi = 0; wi < W; ++wi) {
-            const int lo = max(k - 16 * (wi + 1), 0), hi = k - 16 * wi;
-            uint32_t acc = 0;
-            for (int i = lo; i < hi; ++i) {
-                int b = (i == k - 1 - j) ? v : wb[j + i];
-                ok = ok && b < 4;
-                acc = (acc << 2) | (uint32_t)(b & 3);
-            }
-            words[wi] = acc;
-        }
-        if (ok) {
+    bool solid = false;
+    if (live && j < k) {
+        const int jg = c + j;                // global window index
+        if (jg >= 0 && jg <= lj && kmerax_span_clear(sN[e], j, k)) {
+            uint32_t words[W];
+            kmerax_window_words<W>(sP[e], j, k, words);
+            // the center sits at window position k-1-j: word j/16, bits
+            // 2(j%16) (ops/correct.py::_center_layout)
+#pragma unroll
+            for (int wi = 0; wi < W; ++wi)
+                if (wi == (j >> 4)) words[wi] |= (uint32_t)v << (2 * (j & 15));
             kmerax_canonicalize(words, W, k);
             const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
             const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            if (kmerax_probe_solid(table, h1 & block_mask, h2, d, t))
-                atomicAdd(&sc[v], 1);
+            solid = probe_two_rounds(table, h1 & block_mask, h2, d, t);
         }
     }
+    const int n = __popc(__ballot_sync(KMERAX_FULL_MASK, solid));
+    if (lane == 0) sCount[warp] = n;
     __syncthreads();
-    if (tid < 4) scores[q * 4 + tid] = sc[tid];
+    if (threadIdx.x < 4 * kEntries) {
+        const int ee = threadIdx.x / 4, vv = threadIdx.x % 4;
+        const int64_t qq = (int64_t)blockIdx.x * kEntries + ee;
+        if (qq < Q) {
+            int s = 0;
+#pragma unroll
+            for (int h = 0; h < WPV; ++h)
+                s += sCount[ee * kWarpsPerEntry + vv * WPV + h];
+            scores[qq * 4 + vv] = s;
+        }
+    }
+}
+
+template <int W, int WPV>
+cudaError_t launch(const int32_t* bases, int L, const int32_t* lengths,
+                   const int32_t* last_j, const int32_t* ent_r,
+                   const int32_t* ent_i, int64_t Q, const int32_t* table,
+                   uint32_t block_mask, int d, int t, int k, int32_t* scores,
+                   cudaStream_t stream) {
+    constexpr int kEntries = kWarps / (4 * WPV);
+    correct_eval_scores_kernel<W, WPV>
+        <<<(unsigned)((Q + kEntries - 1) / kEntries), kThreads, 0, stream>>>(
+            bases, L, lengths, last_j, ent_r, ent_i, Q, table, block_mask, d,
+            t, k, scores);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -92,9 +155,20 @@ extern "C" int kmerax_correct_eval_scores(
     const int32_t* last_j, const int32_t* ent_r, const int32_t* ent_i,
     int64_t Q, const int32_t* table, uint32_t block_mask, int d, int t, int k,
     int32_t* scores, cudaStream_t stream) {
-    if (Q > 0)
-        correct_eval_scores_kernel<<<(unsigned)Q, 4 * k, 0, stream>>>(
-            bases, L, lengths, last_j, ent_r, ent_i, table, block_mask, d, t,
-            k, scores);
-    return (int)cudaGetLastError();
+    if (Q <= 0) return (int)cudaGetLastError();
+    switch ((k + 15) / 16) {
+        case 1: return (int)launch<1, 1>(bases, L, lengths, last_j, ent_r,
+                                         ent_i, Q, table, block_mask, d, t, k,
+                                         scores, stream);
+        case 2: return (int)launch<2, 1>(bases, L, lengths, last_j, ent_r,
+                                         ent_i, Q, table, block_mask, d, t, k,
+                                         scores, stream);
+        case 3: return (int)launch<3, 2>(bases, L, lengths, last_j, ent_r,
+                                         ent_i, Q, table, block_mask, d, t, k,
+                                         scores, stream);
+        case 4: return (int)launch<4, 2>(bases, L, lengths, last_j, ent_r,
+                                         ent_i, Q, table, block_mask, d, t, k,
+                                         scores, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: the 2-bit codec, the
-// canonical form and the murmur3 probe hash over native uint32 words.
-// Bit-exact with kmerax_torch/core/{codec,hash}.py (DESIGN.md §§2-3, 5).
+// canonical form and the murmur3 probe hash over native uint32 words, and
+// the packed-window layout K1 and K3 build their k-mers from.
+// Bit-exact with kmerax_torch/core/{codec,hash,kmers}.py (DESIGN.md §§2-3, 5).
 #pragma once
 
 #include <cstdint>
@@ -9,6 +10,7 @@
 #define KMERAX_HASH_SEED_1 0x9E3779B1u
 #define KMERAX_HASH_SEED_2 0x85EBCA77u
 #define KMERAX_MAX_WORDS 4          // k <= 63
+#define KMERAX_FULL_MASK 0xFFFFFFFFu
 
 static __device__ __forceinline__ uint32_t kmerax_mix32(uint32_t x) {
     x ^= x >> 16;
@@ -67,4 +69,63 @@ static __device__ __forceinline__ bool kmerax_probe_solid(const int32_t* table,
     for (int j = 0; j < d; ++j)
         solid = solid && __ldg(row + ((lanepack >> (7 * j)) & 127u)) >= t;
     return solid;
+}
+
+// ---- packed windows (K1, K3) ---------------------------------------------
+//
+// A warp packs a span of bases once into shared memory, 32 positions per
+// chunk c: P[2c] and P[2c+1] hold the 2-bit codes of positions 32c..32c+15
+// and 32c+16..32c+31, the leftmost base in the highest bits, so the span
+// reads as one big-endian bit string; N[c] bit i is set where position
+// 32c+i holds an invalid base. A k-mer window starting at position j is
+// then W funnel shifts (O(W), not a loop over k bases) and a test of k
+// bits of N.
+
+// one chunk c, from each lane's (code, bad) at position 32c+lane; every
+// lane of the warp calls it
+static __device__ __forceinline__ void kmerax_pack_chunk(uint32_t* P,
+                                                  uint32_t* N, int c,
+                                                  int lane, uint32_t code,
+                                                  bool bad) {
+    const uint32_t bits = (code & 3u) << (30 - 2 * (lane & 15));
+    const uint32_t lo = __reduce_or_sync(KMERAX_FULL_MASK, lane < 16 ? bits : 0u);
+    const uint32_t hi = __reduce_or_sync(KMERAX_FULL_MASK, lane < 16 ? 0u : bits);
+    const uint32_t nb = __ballot_sync(KMERAX_FULL_MASK, bad);
+    if (lane == 0) {
+        P[2 * c] = lo;
+        P[2 * c + 1] = hi;
+        N[c] = nb;
+    }
+}
+
+// the W little-endian words of the k-mer starting at position j: word wi
+// folds window positions [lo, hi) (core/kmers.py), read as the n = hi - lo
+// bases from j + lo. P must hold one word past the last base read.
+template <int W>
+static __device__ __forceinline__ void kmerax_window_words(const uint32_t* P,
+                                                    int j, int k,
+                                                    uint32_t* words) {
+#pragma unroll
+    for (int wi = 0; wi < W; ++wi) {
+        const int lo = max(k - 16 * (wi + 1), 0);
+        const int n = k - 16 * wi - lo;              // 1..16 bases
+        const int s = j + lo;
+        const uint32_t x = __funnelshift_l(P[(s >> 4) + 1], P[s >> 4],
+                                           2 * (s & 15));
+        words[wi] = x >> (32 - 2 * n);
+    }
+}
+
+// no invalid base among positions [j, j + k) of N (k <= 63: at most 3
+// words)
+static __device__ __forceinline__ bool kmerax_span_clear(const uint32_t* N,
+                                                  int j, int k) {
+    const int e = j + k;
+    for (int w = j >> 5; w <= (e - 1) >> 5; ++w) {
+        const int lo = max(j - 32 * w, 0), hi = min(e - 32 * w, 32);
+        const uint32_t m = (hi - lo == 32) ? KMERAX_FULL_MASK
+                                           : ((1u << (hi - lo)) - 1u) << lo;
+        if (N[w] & m) return false;
+    }
+    return true;
 }

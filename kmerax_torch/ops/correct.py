@@ -133,11 +133,13 @@ def _eval_scores(bases, lengths, last_j, ent_r, ent_i, k, solid_fn):
     words4 = words0[:, None] ^ torch.where(at_word, delta[..., None], 0)
     canon, _ = canonical_words(words4, k)                          # (Q,4,k,W)
 
+    # solid_fn sees exactly the windows the kernel probes: valid and with
+    # a start inside the read (it is False for any other window, so the
+    # scores are those of masking after the probe)
     jglob = ic[:, None] - (k - 1) + torch.arange(k, dtype=_I64, device=dev)
     in_range = (jglob >= 0) & (jglob <= lj_e[:, None])
-    wvalid4 = wvalid[:, None, :].expand(words4.shape[:-1])
-    solid4 = solid_fn(canon, wvalid4) & in_range[:, None, :]
-    return solid4.sum(dim=-1, dtype=torch.int32)                   # (Q,4)
+    live = (wvalid & in_range)[:, None, :].expand(words4.shape[:-1])
+    return solid_fn(canon, live).sum(dim=-1, dtype=torch.int32)    # (Q,4)
 
 
 def _accept(scores, bases, ent_r, ent_i):

@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from kmerax_torch.ops.correct import _accept, _eval_scores
-from kmerax_torch.spectrum.bloom import BloomParams, blocks_lanepack
-from kmerax_torch.spectrum.bloom_kernels import query_solid_plain
+from kmerax_torch.spectrum.bloom import BloomParams
+from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+    query_solid_plain
 from kmerax_torch.utils import cuda
 
 

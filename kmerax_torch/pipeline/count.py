@@ -1,9 +1,11 @@
 """Count stage (port of kmerax/pipeline/run.py::run_count, single device).
 
-Per batch: extract k-mers, canonicalize, hash, insert into the Bloom table
-(kernel K1 on the card), and append the raw canonical rows to a device
-pending buffer. When the buffer fills, and once at the end, the host merges
-it into the sorted exact spectrum (np_merge_counted). Counts are
+Per batch: one call of kernel K1 on the read batch as it crossed to the
+device, which extracts the k-mers, canonicalizes and hashes them, inserts
+them into the Bloom table and appends their raw canonical rows to a device
+pending buffer (on the CPU its plain version runs the same steps in
+torch). When the buffer fills, and once at the end, the host merges it into
+the sorted exact spectrum (np_merge_counted). Counts are
 order-free sums, so any flush schedule gives the same spectrum
 (DESIGN.md §13). The stage ends with the histogram and the threshold.
 """
@@ -17,12 +19,12 @@ import numpy as np
 import torch
 
 from kmerax_torch.config import KmeraxConfig
-from kmerax_torch.core.codec import canonical_words, num_words, to_u32_bits
-from kmerax_torch.core.kmers import extract_kmers
+from kmerax_torch.core.codec import num_words
 from kmerax_torch.io.batcher import BackgroundBatcher
-from kmerax_torch.spectrum.bloom import BloomParams, insert, make_table
+from kmerax_torch.spectrum.bloom import BloomParams, make_table
+from kmerax_torch.spectrum.bloom_kernels import bloom_insert
 from kmerax_torch.spectrum.exact import (
-    SENTINEL_WORD, mask_invalid, np_merge_counted, sentinel_rows,
+    SENTINEL_WORD, np_merge_counted, sentinel_rows,
 )
 from kmerax_torch.spectrum.histogram import solid_threshold
 from kmerax_torch.spectrum.host import HostSpectrum
@@ -59,28 +61,18 @@ def to_device_batch(batch, device):
 
 
 def _count_steps(cfg: KmeraxConfig, k: int):
-    """The per-batch count step and the host flush for this config.
+    """The Bloom parameters and the host flush for this config.
 
-    Returns (params, step, exact_flush, P, pend_rows): step(table, pending,
-    off, bases) inserts the batch into `table` in place, writes its masked
-    canonical rows to pending[off:off + pend_rows] (when pending is not
-    None) and returns the number of valid k-mers as a device scalar.
+    Returns (params, exact_flush, P, pend_rows): a batch's step is
+    bloom_insert(table, bases, params, pending, off), which writes its
+    pend_rows masked canonical rows from row `off` of the (P, W) pending
+    buffer.
     """
     params = bloom_params(cfg, k)
-    w = num_words(k)
     pend_rows = cfg.batch_reads * (cfg.max_read_len - k + 1)
     # buffer ~cap/2 raw rows per flush: flush count stays O(stream/cap)
     pend_m = max(1, (cfg.exact_capacity // 2) // pend_rows)
     P = pend_m * pend_rows
-
-    def step(table, pending, off, bases):
-        words, valid = extract_kmers(bases, k)
-        canon, _ = canonical_words(words, k)
-        insert(params, table, canon, valid)
-        if pending is not None:
-            flat = mask_invalid(canon, valid).reshape(-1, w)
-            pending[off:off + pend_rows] = to_u32_bits(flat)
-        return valid.sum()
 
     def exact_flush(uniq_np, counts_np, pending, off):
         """One D2H of the raw rows + a host sort/merge."""
@@ -91,7 +83,7 @@ def _count_steps(cfg: KmeraxConfig, k: int):
             [counts_np, np.ones(len(pend), dtype=np.int64)])
         return np_merge_counted(rows, wts)
 
-    return params, step, exact_flush, P, pend_rows
+    return params, exact_flush, P, pend_rows
 
 
 def run_count(cfg: KmeraxConfig, paths, *, device,
@@ -100,7 +92,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     """Count pass: stream batches -> Bloom table (+ exact spectrum)."""
     k = k or cfg.k
     m = metrics or MetricsWriter(None)
-    params, step, exact_flush, P, pend_rows = _count_steps(cfg, k)
+    params, exact_flush, P, pend_rows = _count_steps(cfg, k)
     table = make_table(params, device)
     pending = None
     host_ex = None
@@ -115,7 +107,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     m.stage_start("count")
     for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
         bases, _ = to_device_batch(batch, device)
-        n_kmers += step(table, pending, off, bases)
+        n_kmers += bloom_insert(table, bases, params, pending, off)
         if pending is not None:
             off += pend_rows
             if off == P:

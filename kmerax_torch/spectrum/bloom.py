@@ -5,7 +5,8 @@ One int32 counter table of 2^log2_width counters in 128-counter block rows;
 a k-mer's d probes all fall in one block row. The port has the "hash"
 bucket scheme (DESIGN.md §5a) and i32 counters only. The table is updated
 in place (a GPU table at real size is gigabytes; JAX's functional update
-has no counterpart the port needs).
+has no counterpart the port needs). Inserts go through kernel K1
+(`bloom_kernels.bloom_insert`), which takes the read batch itself.
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from kmerax_torch.core.hash import bloom_blocks_lanes
-from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
+from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
     bloom_query_solid
 
 
@@ -36,27 +36,6 @@ class BloomParams:
 
 def make_table(params: BloomParams, device) -> torch.Tensor:
     return torch.zeros(params.width, dtype=torch.int32, device=device)
-
-
-def blocks_lanepack(params: BloomParams, canon_words: torch.Tensor):
-    """(block (...) int32, lanepack (...) int32 with d 7-bit lanes packed) —
-    the kernels' addressing form (DESIGN.md §5)."""
-    block, lanes = bloom_blocks_lanes(canon_words, params.log2_width,
-                                      params.num_hashes)
-    lp = lanes[..., 0]
-    for j in range(1, params.num_hashes):
-        lp = lp | (lanes[..., j] << (7 * j))
-    return block, lp
-
-
-def insert(params: BloomParams, table: torch.Tensor,
-           canon_words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Add one batch of canonical k-mers (..., W) to the table in place
-    (kernel K1 on the card); returns the table."""
-    block, lp = blocks_lanepack(params, canon_words)
-    bloom_insert(table, block.reshape(-1), lp.reshape(-1),
-                 valid.reshape(-1), params.num_hashes)
-    return table
 
 
 def query_solid(params: BloomParams, table: torch.Tensor, t: int,

@@ -106,7 +106,8 @@ def lib() -> ctypes.CDLL:
     so, _ = build()
     L = ctypes.CDLL(str(so))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    L.kmerax_bloom_insert.argtypes = [P, P, P, P, I64, I, P]
+    L.kmerax_bloom_insert.argtypes = [
+        P, P, I, I, I, ctypes.c_uint32, I, P, I64, P, P]
     L.kmerax_bloom_query_solid.argtypes = [P, P, P, P, P, I64, I, I, P]
     L.kmerax_correct_eval_scores.argtypes = [
         P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, P, P]

@@ -1,0 +1,166 @@
+"""A numpy emulation of how kernels K1 and K3 build k-mers (csrc/kmerax.cuh:
+kmerax_pack_chunk, kmerax_window_words, kmerax_span_clear; K3's center OR
+in csrc/correct.cu), held against the JAX package's extract_kmers and
+canonical_words and against the plain K3 scores. The card is the only
+place the kernels run, so this checks their word layout, funnel-shift
+offsets and N masks before a chip call. Exact: tolerance 0."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from kmerax.core import canonical_words as j_canonical
+from kmerax.core import extract_kmers as j_extract
+from kmerax.ops.correct import _eval_entries as j_eval_entries
+from kmerax.spectrum import bloom as jbloom
+from kmerax_torch.core.codec import canonical_words
+from kmerax_torch.ops.correct import _accept, _eval_scores
+from kmerax_torch.spectrum import bloom
+
+from parity import n, reads_with_ns, t
+
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def pack_chunks(codes, bad):
+    """What a warp packs (kmerax_pack_chunk), for R spans at once: codes
+    and bad (R, 32 nch), lane = position % 32 -> P (R, 2 nch + 1) 2-bit
+    words, leftmost base highest, one zero word past the end; N (R, nch)
+    with bit i of word c set where position 32c+i is invalid."""
+    R, npos = codes.shape
+    nch = npos // 32
+    lane = np.arange(npos) % 32
+    bits = (codes.astype(np.uint64) & np.uint64(3)) \
+        << (30 - 2 * (lane % 16)).astype(np.uint64)
+    P = bits.reshape(R, 2 * nch, 16).sum(axis=2)   # disjoint bits: OR
+    P = np.concatenate([P, np.zeros((R, 1), np.uint64)], axis=1)
+    N = (bad.reshape(R, nch, 32).astype(np.uint64)
+         << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    return P, N
+
+
+def funnelshift_l(lo, hi, sh):
+    """__funnelshift_l(lo, hi, sh): the high word of (hi:lo) << sh."""
+    return ((((hi << np.uint64(32)) | lo) << np.uint64(sh))
+            >> np.uint64(32)) & M32
+
+
+def window_words(P, j, k):
+    """kmerax_window_words: word wi folds window positions [lo, hi), read
+    as the hi - lo bases from position j + lo."""
+    W = (k + 15) // 16
+    out = np.empty((P.shape[0], W), np.uint64)
+    for wi in range(W):
+        lo = max(k - 16 * (wi + 1), 0)
+        nb = k - 16 * wi - lo
+        s = j + lo
+        x = funnelshift_l(P[:, (s >> 4) + 1], P[:, s >> 4], 2 * (s & 15))
+        out[:, wi] = x >> np.uint64(32 - 2 * nb)
+    return out
+
+
+def span_clear(N, j, k):
+    """kmerax_span_clear: no N bit among positions [j, j + k)."""
+    e = j + k
+    clear = np.ones(N.shape[0], bool)
+    for w in range(j >> 5, ((e - 1) >> 5) + 1):
+        lo, hi = max(j - 32 * w, 0), min(e - 32 * w, 32)
+        m = 0xFFFFFFFF if hi - lo == 32 else ((1 << (hi - lo)) - 1) << lo
+        clear &= (N[:, w] & np.uint64(m)) == 0
+    return clear
+
+
+def k1_windows(bases, k):
+    """K1's k-mers of a (B, L) batch: one warp per read packs it (positions
+    past L read as 4), lane l takes windows l, l+32, ... Returns (words
+    (B, nk, W) uint64, valid (B, nk))."""
+    B, L = bases.shape
+    nch = -(-L // 32)
+    b = np.full((B, 32 * nch), 4, np.int64)
+    b[:, :L] = bases
+    P, N = pack_chunks(b, b >= 4)
+    nk = L - k + 1
+    words = np.stack([window_words(P, j, k) for j in range(nk)], axis=1)
+    valid = np.stack([span_clear(N, j, k) for j in range(nk)], axis=1)
+    return words, valid
+
+
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_k1_packed_windows_match_extract_and_canonical(k):
+    reads, _ = reads_with_ns(11 + k, 48, 130, k, n_rate=0.01)
+    words, valid = k1_windows(reads, k)
+    jw, jv = j_extract(jnp.asarray(reads), k)
+    jw, jv = np.asarray(jw), np.asarray(jv)
+    np.testing.assert_array_equal(valid, jv)
+    np.testing.assert_array_equal(words[valid], jw[jv])
+    canon, _ = canonical_words(t(words.astype(np.int64)), k)
+    jc, _ = j_canonical(jnp.asarray(jw), k)
+    np.testing.assert_array_equal(n(canon)[valid], np.asarray(jc)[jv])
+    assert 0 < valid.sum() < valid.size          # Ns and padding present
+
+
+def k3_scores(bases, lengths, last_j, ent_r, ent_i, k, solid_fn):
+    """K3's scores: per entry its 2k-1 window bases packed once (positions
+    outside [0, length) as 4, the center as code 0 and valid), then per
+    (v, j) the window's words with v ORed in at word j/16, bits 2(j%16),
+    counted where the window starts inside the read and holds no N."""
+    B, L = bases.shape
+    ic = np.clip(ent_i, 0, L - 1)
+    c = ic - (k - 1)
+    ln = np.minimum(lengths[ent_r], L)
+    span = 2 * k - 1
+    i = np.arange(32 * -(-span // 32))
+    p = c[:, None] + i[None, :]
+    inside = (p >= 0) & (p < ln[:, None])
+    b = np.where(inside, bases[ent_r[:, None], np.clip(p, 0, L - 1)], 4)
+    bad = (b >= 4) | (i >= span)[None, :]
+    b[:, k - 1], bad[:, k - 1] = 0, False
+    P, N = pack_chunks(b, bad)
+    W = (k + 15) // 16
+    words = np.empty((len(ent_r), 4, k, W), np.uint64)
+    live = np.empty((len(ent_r), 4, k), bool)
+    for j in range(k):
+        jg = c + j
+        ok = (jg >= 0) & (jg <= last_j[ent_r]) & span_clear(N, j, k)
+        base = window_words(P, j, k)
+        for v in range(4):
+            wv = base.copy()
+            wv[:, j >> 4] |= np.uint64(v << (2 * (j & 15)))
+            words[:, v, j], live[:, v, j] = wv, ok
+    canon, _ = canonical_words(t(words.astype(np.int64)), k)
+    return solid_fn(canon, t(live)).sum(dim=-1, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_k3_packed_windows_match_eval_scores(k):
+    B, L, LW, thr = 48, 110, 15, 2
+    reads, lengths = reads_with_ns(40 + k, B, L, k,
+                                   err_rate=0.01 if k == 63 else 0.03)
+    jp = jbloom.BloomParams(k=k, log2_width=LW, num_hashes=4)
+    jw, jv = j_extract(jnp.asarray(reads), k)
+    table = jbloom.insert(jp, jnp.zeros(jp.width, jnp.int32),
+                          j_canonical(jw, k)[0], jv)
+    p = bloom.BloomParams(k, LW, 4)
+    tt = t(table).to(torch.int32)
+    solid_fn = lambda cw, v: bloom.query_solid(p, tt, thr, cw, v)
+    rng = np.random.default_rng(k)
+    Q = 160
+    ent_r = rng.integers(0, B, Q).astype(np.int32)
+    ent_i = rng.integers(0, L, Q).astype(np.int32)
+    ent_i[:8] = -1                        # padding entries
+    ent_i[8:16] = rng.integers(0, k - 1, 8)   # window starts before the read
+    ent_i[16:24] = L - 1
+    last_j = lengths - k
+    got = k3_scores(reads, lengths, last_j, ent_r, ent_i, k, solid_fn)
+    args = (t(reads).to(torch.int32), t(lengths), t(last_j), t(ent_r),
+            t(ent_i))
+    want = _eval_scores(*args, k, solid_fn)
+    np.testing.assert_array_equal(n(got), n(want))
+    assert int(got.sum()) > 0
+    _, accept = _accept(got, *args[:1], args[3], args[4])
+    _, j_accept = j_eval_entries(
+        jnp.asarray(reads), jnp.asarray(lengths), jnp.asarray(last_j),
+        jnp.asarray(ent_r), jnp.asarray(ent_i), k,
+        lambda cw, v: (jbloom.query(jp, table, cw, v) >= thr) & v)
+    np.testing.assert_array_equal(n(accept), np.asarray(j_accept))

@@ -1,7 +1,8 @@
 """kmerax_torch.spectrum and the count stage == kmerax's: the plain
-versions of kernels K1 (insert) and K2 (solidity probe) against the XLA
-path and the Pallas kernels in interpret mode, and run_count's table,
-spectrum, histogram and threshold. Exact: tolerance 0."""
+insert inside kernel K1 and the plain version of K2 (solidity probe)
+against the XLA path and the Pallas kernels in interpret mode, and
+run_count's table, spectrum, histogram and threshold. Exact: tolerance
+0."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,8 +17,8 @@ from kmerax.spectrum import bloom as jbloom
 from kmerax.spectrum.pallas_bloom import insert_pallas, query_solid_pallas
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.spectrum import bloom
-from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
-    bloom_query_solid
+from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+    bloom_insert, bloom_query_solid, insert_plain
 from kmerax_torch.spectrum.exact import np_merge_counted
 from kmerax_torch.spectrum.histogram import solid_threshold
 from kmerax_torch.pipeline.count import run_count
@@ -45,7 +46,9 @@ def test_insert_plain_matches_xla_and_pallas(k):
                                         jnp.asarray(valid), interpret=True))
     tp = bloom.BloomParams(k, 16, 4)
     table = bloom.make_table(tp, "cpu")
-    bloom.insert(tp, table, t(canon), t(valid))
+    block, lp = blocks_lanepack(tp, t(canon))
+    insert_plain(table, block.reshape(-1), lp.reshape(-1),
+                 t(valid).reshape(-1), 4)
     np.testing.assert_array_equal(n(table), want_xla)
     np.testing.assert_array_equal(n(table), want_pal)
     assert want_xla.sum() == 4 * valid.sum()
@@ -79,12 +82,14 @@ def test_query_solid_plain_matches_xla_and_pallas(t_solid):
 
 def test_cpu_wrappers_take_plain_path_and_count_no_launch():
     cuda.reset_launches()
+    reads, _ = reads_with_ns(7, 8, 100, 31)
     canon, valid = _canon(31, seed=7, B=8)
     p = bloom.BloomParams(31, 12, 4)
     table = bloom.make_table(p, "cpu")
-    block, lp = bloom.blocks_lanepack(p, t(canon))
+    n_valid = bloom_insert(table, t(reads).to(torch.int8), p)
+    assert int(n_valid) == valid.sum()
+    block, lp = blocks_lanepack(p, t(canon))
     v = t(valid).reshape(-1)
-    bloom_insert(table, block.reshape(-1), lp.reshape(-1), v, 4)
     solid = bloom_query_solid(table, block.reshape(-1), lp.reshape(-1), v,
                               4, 1)
     assert bool(solid[v].all()) and not bool(solid[~v].any())
@@ -92,15 +97,16 @@ def test_cpu_wrappers_take_plain_path_and_count_no_launch():
 
 
 def test_wrapper_rejects_bad_arguments():
+    """K2's wrapper; K1's is test_torch_bloom_insert.py's."""
     p = bloom.BloomParams(31, 12, 4)
     table = bloom.make_table(p, "cpu")
     block = torch.zeros(4, dtype=torch.int64)
     lp = torch.zeros(4, dtype=torch.int32)
     valid = torch.ones(4, dtype=torch.bool)
     with pytest.raises(TypeError):
-        bloom_insert(table, block, lp, valid, 4)
+        bloom_query_solid(table, block, lp, valid, 4, 1)
     with pytest.raises(ValueError):
-        bloom_insert(table, block.to(torch.int32), lp[:3], valid, 4)
+        bloom_query_solid(table, block.to(torch.int32), lp[:3], valid, 4, 1)
 
 
 def test_np_merge_counted_and_threshold():
