@@ -10,9 +10,10 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
 
   1. device and toolchain: card name and power limit, torch/CUDA/nvcc
      versions; builds the CUDA kernels from kmerax_torch/csrc.
-  2. each kernel (K1 bloom_insert at k = 25, 31, 63 on a config-1 read
-     batch, K2 bloom_query_solid, K3 correct_eval_scores at k = 25, 31,
-     63, K4 banded_align_scores at band 15 and 63) against its plain
+  2. each kernel (K1 bloom_insert and K2 bloom_query_solid at k = 25, 31,
+     63 on a config-1 read batch, K3 correct_eval_scores at k = 25, 31,
+     63, K4 banded_align_scores at band 15 and 63 in each of its
+     lanes-per-read layouts, each timed) against its plain
      PyTorch version on the card at its path's shapes: exact integer
      equality (tolerance 0, all outputs are integers). Each kernel's
      device time per launch over 50 back-to-back launches, its host time
@@ -30,8 +31,9 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      correction accuracy against the simulated truth; then, outside the
      launch count, the count stage's synchronised device step per batch,
      one profiler window of 20 count and one of 20 correct batches with
-     K1-K3's device share, and K3 against its plain version on the main
-     path's own first call and at its entry count.
+     K1-K3's device share and the kernels launched per batch and per
+     correct round, and K2 and K3 against their plain versions on the
+     main path's own first calls (K3 also at its entry count).
   5. BASELINE config 3 (human chr21 PE150 30x, error rate 0.005, k=31,
      correct + assemble) on a 6.0 Mb genome, through `pipeline --validate`
      and then the `align` subcommand, with stage walls, launch counts,
@@ -245,14 +247,42 @@ def _reads(rng, B, L, k, n_rate=0.003):
     return reads.astype(np.int32), lengths
 
 
-def _timed(fn, plain, plain_calls: int = 10) -> dict:
-    """The kernel's device ms per launch over 50 back-to-back calls and its
-    host ms per call, one wrapper call's median ms, and the plain version's
-    ms per call back to back."""
+def _kernel_ms(fn, kernel: str, launches: int = 50, warm: int = 3):
+    """The device time per launch of the CUDA kernel whose name holds
+    `kernel`, as torch.profiler records it over `launches` calls of fn:
+    the kernel's own time, whatever the host's pace; None where the
+    profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key):
+            us += e.self_device_time_total
+            n += e.count
+    return us / n * 1e-3 if n else None
+
+
+def _timed(fn, plain, kernel: str, plain_calls: int = 10) -> dict:
+    """The kernel's device ms per launch over 50 back-to-back calls between
+    two events and its host ms per call, its own device time per launch
+    from the profiler (kernel_ms: where the host enqueues no faster than
+    the card runs, the event time is the host's), one wrapper call's
+    median ms, and the plain version's ms per call back to back."""
     ms, host = _per_launch_ms(fn)
+    kms = _kernel_ms(fn, kernel)
     wms = _median_ms(fn)
     pms, _ = _per_launch_ms(plain, plain_calls)
-    return dict(ms=ms, host_ms=host, wrapper_ms=wms, plain_ms=pms)
+    return dict(ms=ms, kernel_ms=kms, host_ms=host, wrapper_ms=wms,
+                plain_ms=pms)
 
 
 def _record(name, source, replaces, err, times, nbytes, ops, floor_bytes,
@@ -269,7 +299,8 @@ def _say_times(tag: str, r: dict) -> None:
     floor = "none (no counter rows)" if r["sector_floor_ms"] is None \
         else f"{r['sector_floor_ms']:.4f} ms"
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-    num(f"{tag}: kernel {r['ms']:.4f} ms per launch back to back (host "
+    num(f"{tag}: kernel {r['ms']:.4f} ms per launch back to back, its own "
+        f"device time {r['kernel_ms']} ms (profiler) (host "
         f"{r['host_ms']:.4f} ms per call; one wrapper call "
         f"{r['wrapper_ms']:.4f} ms median); bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}); sector floor {floor}; library {lib}; plain "
@@ -281,61 +312,13 @@ def phase_kernels(device=DEVICE):
     records of the final JSON line (without launch counts)."""
     import numpy as np
     import torch
-    from kmerax_torch.core.codec import canonical_words
-    from kmerax_torch.core.kmers import extract_kmers
     from kmerax_torch.spectrum.bloom import BloomParams, make_table
-    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
-        bloom_query_solid, query_solid_plain
 
-    sync = torch.cuda.synchronize
     rng = np.random.default_rng(SEED)
-    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
-
-    def addressing(params, reads):
-        bases = torch.as_tensor(reads, device=device)
-        words, valid = extract_kmers(bases, params.k)
-        canon, _ = canonical_words(words, params.k)
-        block, lp = blocks_lanepack(params, canon)
-        return block.reshape(-1), lp.reshape(-1), valid.reshape(-1)
-
     recs = [_check_k1(rng, device)]
-    p31 = BloomParams(31, LW, d)
-    reads, _ = _reads(rng, B, L, 31)
-    blk, lp, valid = addressing(p31, reads)
-    tk = make_table(p31, device)
-    _fill3(tk, p31, reads)
-
-    # K2: the batch inserted three times plus an unseen batch, against that
-    # table at t=3
-    reads2, _ = _reads(rng, B, L, 31)
-    blk2, lp2, valid2 = addressing(p31, reads2)
-    qb, ql, qv = (torch.cat([blk, blk2]), torch.cat([lp, lp2]),
-                  torch.cat([valid, valid2]))
-    sk = bloom_query_solid(tk, qb, ql, qv, d, 3)
-    sync()
-    sp = query_solid_plain(tk, qb, ql, qv, d, 3)
-    sync()
-    err = int((sk.to(torch.int32) - sp.to(torch.int32)).abs().max())
-    if not torch.equal(sk, sp):
-        raise AssertionError("K2 solidity differs from plain")
-    n_solid = int(sk.sum())
-    if not 0 < n_solid < qb.numel():
-        raise AssertionError(f"K2 test is degenerate: {n_solid} solid")
-    n = qb.numel()
-    lanes, sectors = _probe_traffic(tk, qb, ql, qv, d, 3)
-    times = _timed(lambda: bloom_query_solid(tk, qb, ql, qv, d, 3),
-                   lambda: query_solid_plain(tk, qb, ql, qv, d, 3))
-    rec = _record("bloom_query_solid", "kmerax_torch/csrc/bloom.cu",
-                  "kmerax/spectrum/pallas_bloom.py:190", err, times,
-                  10 * n + 4 * lanes, 4 * lanes, 10 * n + SECTOR * sectors,
-                  None)
-    _say_times(f"phase2 K2 bloom_query_solid == plain: {n} k-mers, "
-               f"{n_solid} solid at t=3, {lanes} counter lanes read in "
-               f"{sectors} sectors", rec)
-    recs.append(rec)
-    del qb, ql, qv
-
-    recs.append(_check_k3(rng, tk, _fill3, 4 * B, device))
+    tk = make_table(BloomParams(31, K_LOG2_WIDTH, 4), device)
+    recs.append(_check_k2(rng, tk, device))
+    recs.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device))
     del tk
     torch.cuda.empty_cache()
     recs.append(_check_k4(rng, device))
@@ -395,7 +378,8 @@ def _check_k1(rng, device):
         lib, _ = _per_launch_ms(lambda: tk.index_add_(0, idx, ones))
         del words, blk, lp, valid, idx, ones
         times = _timed(lambda: bloom_insert(tk, bases, p, pk, rows),
-                       lambda: bloom_insert_plain(tk, bases, p, pk, rows))
+                       lambda: bloom_insert_plain(tk, bases, p, pk, rows),
+                       "bloom_insert_kernel")
         io_bytes = B * L + 4 * W * rows + 8
         r = _record("bloom_insert", "kmerax_torch/csrc/bloom.cu",
                     "kmerax/spectrum/pallas_bloom.py:42", err, times,
@@ -411,6 +395,86 @@ def _check_k1(rng, device):
             rec = r
         del tk, pk
         torch.cuda.empty_cache()
+    rec["max_abs_err"] = err_max
+    return rec
+
+
+def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
+              phase="phase2"):
+    """K2 == bloom_query_solid_plain at k in ks on a 4096 x 160 int32 batch
+    (Ns, ragged lengths, 2 % of the reads shorter than k, so last_j < 0)
+    whose first half `_fill3` inserted three times into the table `tk` and
+    whose second half is fresh, at t=3; and first, when `real` holds the
+    arguments of a K2 call on the main path, on those. Exact. Returns the
+    record of that call, else of k=31."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import canonical_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.spectrum.bloom import BloomParams
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_query_solid, bloom_query_solid_plain
+
+    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+
+    def cases():
+        if real is not None:          # first: `_fill3` overwrites the table
+            pk, t_real, (bases, last_j) = real
+            yield f"k={pk.k}, main-path call", pk, t_real, bases, last_j
+        for k in ks:
+            pk = BloomParams(k, LW, d)
+            seen, slen = _reads(rng, B, L, k)
+            _fill3(tk, pk, seen)
+            fresh, flen = _reads(rng, B, L, k)
+            reads = np.concatenate([seen[:B // 2], fresh[B // 2:]])
+            lengths = np.concatenate([slen[:B // 2], flen[B // 2:]])
+            short = np.nonzero(rng.random(B) < 0.02)[0]
+            lengths[short] = rng.integers(0, k, short.size)
+            for i in short:
+                reads[i, lengths[i]:] = 4
+            yield (f"k={k}", pk, 3, torch.as_tensor(reads, device=device),
+                   torch.as_tensor(lengths - k, device=device))
+
+    rec, err_max = None, 0
+    for tag, pk, t, bases, last_j in cases():
+        k, W = pk.k, (pk.k + 15) // 16
+        sk = bloom_query_solid(tk, bases, last_j, pk, t)
+        torch.cuda.synchronize()
+        sp = bloom_query_solid_plain(tk, bases, last_j, pk, t)
+        torch.cuda.synchronize()
+        err = int((sk.to(torch.int32) - sp.to(torch.int32)).abs().max())
+        if not torch.equal(sk, sp):
+            raise AssertionError(f"K2 solidity differs from plain at {tag}")
+        nk = L - k + 1
+        existing = (torch.arange(nk, device=bases.device)[None, :]
+                    <= last_j[:, None])
+        n_solid, n_win = int(sk.sum()), int(existing.sum())
+        if not 0 < n_solid < n_win:
+            raise AssertionError(f"K2 test is degenerate at {tag}: "
+                                 f"{n_solid} of {n_win} solid")
+        words, valid = extract_kmers(bases, k)
+        blk, lp = blocks_lanepack(pk, canonical_words(words, k)[0])
+        live = (valid & existing).reshape(-1)
+        lanes, sectors = _probe_traffic(tk, blk.reshape(-1), lp.reshape(-1),
+                                        live, d, t)
+        del words, valid, blk, lp
+        times = _timed(lambda: bloom_query_solid(tk, bases, last_j, pk, t),
+                       lambda: bloom_query_solid_plain(tk, bases, last_j, pk,
+                                                       t),
+                       "bloom_query_solid_kernel")
+        io_bytes = 4 * bases.numel() + 4 * B + B * nk
+        r = _record("bloom_query_solid", "kmerax_torch/csrc/bloom.cu",
+                    "kmerax/spectrum/pallas_bloom.py:190", err, times,
+                    io_bytes + 4 * lanes,
+                    _kmer_ops(W, B * nk, int(live.sum()), lanes),
+                    io_bytes + SECTOR * sectors, None)
+        _say_times(f"{phase} K2 bloom_query_solid == plain at {tag}: "
+                   f"{B} x {L} int32 batch, {n_win} windows in [0, last_j], "
+                   f"{int(live.sum())} valid, {n_solid} solid at t={t}; "
+                   f"{lanes} counter lanes read in {sectors} sectors", r)
+        err_max = max(err_max, err)
+        if rec is None or (k == 31 and real is None):
+            rec = r
     rec["max_abs_err"] = err_max
     return rec
 
@@ -492,7 +556,8 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
         base_bytes = 4 * min(Qc * (2 * k - 1), args[0].numel())
         io_bytes = 8 * Qc + 8 * Qc + base_bytes + 16 * Qc
         times = _timed(lambda: correct_eval_scores(pk, tk, t, *args),
-                       lambda: eval_scores_plain(pk, tk, t, *args), 5)
+                       lambda: eval_scores_plain(pk, tk, t, *args),
+                       "correct_eval_scores_kernel", 5)
         r = _record("correct_eval_scores", "kmerax_torch/csrc/correct.cu",
                     "kmerax/ops/pallas_correct.py:74", err, times,
                     io_bytes + 4 * lanes,
@@ -542,27 +607,46 @@ def _align_inputs(rng, B, L, band):
 
 
 def _check_k4(rng, device):
-    """K4 at the align stage's shapes (4096 reads x 160) at the default
-    band 15 and the widest band 63 (W = 127)."""
+    """K4 at the align stage's shapes (K_READS = 4096 reads x 160) at the
+    default band 15 and the widest band 63 (W = 127), in every
+    lanes-per-read layout G: each equal to the plain version, each timed;
+    the record is the wrapper's (G = LANES) at band 15, with every G's
+    time."""
     import torch
-    from kmerax_torch.ops.align_kernels import NEG_INF, \
-        banded_align_scores, banded_align_scores_plain as align_plain
+    from kmerax_torch.ops.align_kernels import LANE_CHOICES, LANES, \
+        NEG_INF, banded_align_scores, banded_align_scores_lanes, \
+        banded_align_scores_plain as align_plain
 
     rec = None
     for band in (15, 63):
         args = [torch.as_tensor(a, device=device)
-                for a in _align_inputs(rng, 4096, 160, band)]
-        sk = banded_align_scores(*args, band)
-        torch.cuda.synchronize()
+                for a in _align_inputs(rng, K_READS, K_LEN, band)]
         sp = align_plain(*args, band)
         torch.cuda.synchronize()
-        err = int((sk.to(torch.int64) - sp.to(torch.int64)).abs().max())
+        by_g, err = {}, 0
+        for G in LANE_CHOICES:
+            sk = banded_align_scores_lanes(*args, band, G)
+            torch.cuda.synchronize()
+            err = max(err, int((sk.to(torch.int64)
+                                - sp.to(torch.int64)).abs().max()))
+            if not torch.equal(sk, sp):
+                raise AssertionError(f"K4 scores differ from plain at band "
+                                     f"{band}, G={G}")
+            by_g[G] = _kernel_ms(
+                lambda: banded_align_scores_lanes(*args, band, G),
+                "banded_align_kernel")
+        sk = banded_align_scores(*args, band)
         if not torch.equal(sk, sp):
-            raise AssertionError(f"K4 scores differ from plain at band {band}")
+            raise AssertionError(f"K4 wrapper differs at band {band}")
         n_pos, n_inf = int((sk > 0).sum()), int((sk == NEG_INF).sum())
-        if not (n_pos > 2048 and n_inf > 0):
+        if not (n_pos > K_READS // 2 and n_inf > 0):
             raise AssertionError(f"K4 test is degenerate at band {band}: "
                                  f"{n_pos} positive, {n_inf} NEG_INF")
+        fastest = min(by_g, key=lambda g: by_g[g] or float("inf"))
+        num(f"phase2 K4 at band {band}, the kernel's own device ms per "
+            f"launch (profiler) by lanes per read G: " + ", ".join(
+                f"G={g} {ms}" for g, ms in by_g.items())
+            + f"; fastest G={fastest}, the wrapper's G={LANES}")
         # cells: the rows up to qlen of every read inside the band gate,
         # 2 band + 1 diagonals each, ~10 int32 operations per cell (score
         # select, three adds, three maxes, band masks)
@@ -570,16 +654,20 @@ def _check_k4(rng, device):
         run = (tlen - qlen).abs() <= band
         cells = int(qlen[run].long().sum()) * (2 * band + 1)
         times = _timed(lambda: banded_align_scores(*args, band),
-                       lambda: align_plain(*args, band))
+                       lambda: align_plain(*args, band),
+                       "banded_align_kernel")
         r = _record("banded_align_scores", "kmerax_torch/csrc/align.cu",
                     "kmerax/ops/pallas_align.py:49", err, times,
                     4 * (q.numel() + tg.numel()) + 12 * q.shape[0],
                     10 * cells, None, None)
-        _say_times(f"phase2 K4 banded_align_scores == plain at band {band}: "
-                   f"4096 reads x 160, {n_pos} positive, {n_inf} NEG_INF, "
-                   f"{cells} cells", r)
+        r["ms_by_lanes"] = {f"band{band}": by_g}
+        _say_times(f"phase2 K4 banded_align_scores == plain at band {band} "
+                   f"(G={LANES}): {K_READS} reads x {K_LEN}, "
+                   f"{n_pos} positive, {n_inf} NEG_INF, {cells} cells", r)
         if rec is None:
             rec = r
+        else:
+            rec["ms_by_lanes"].update(r["ms_by_lanes"])
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return rec
 
@@ -799,8 +887,9 @@ def _fill3(tk, pk, reads) -> None:
 def _profile_window(fn, batches, names):
     """One torch.profiler window over fn(*b) for b in batches: (host wall s,
     device seconds of all kernels and copies, {name: device seconds of the
-    kernels whose name holds it}); device seconds are None where the
-    profiler shows no device time."""
+    kernels whose name holds it}, the number of kernels launched: device
+    events other than copies and memsets); device seconds are None where
+    the profiler shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -812,16 +901,18 @@ def _profile_window(fn, batches, names):
             fn(*b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    total, by = 0.0, dict.fromkeys(names, 0.0)
+    total, by, n_kernels = 0.0, dict.fromkeys(names, 0.0), 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.self_device_time_total
         total += us * 1e-6
+        if not e.key.startswith(("Memcpy", "Memset")):
+            n_kernels += e.count
         for name in names:
             if name in e.key:
                 by[name] += us * 1e-6
-    return wall, (total or None), by if total else None
+    return wall, (total or None), by if total else None, n_kernels
 
 
 def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
@@ -831,15 +922,16 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
     and is not in the time), then one profiler window of `n_window` count
     batches and one of `n_window` correct batches against the finished
     table. Returns (params, table, the arguments of the first correct
-    batch's first K3 call)."""
+    batch's first K3 call, those of its first K2 call)."""
     import torch
     from kmerax_torch.config import KmeraxConfig
     from kmerax_torch.core.codec import num_words
     from kmerax_torch.io.batcher import BackgroundBatcher
     from kmerax_torch.ops.correct import correct_batch
-    from kmerax_torch.ops.correct_kernels import make_eval_fn
+    from kmerax_torch.ops.correct_kernels import make_eval_fn, \
+        make_window_fn
     from kmerax_torch.pipeline.count import _count_steps, to_device_batch
-    from kmerax_torch.spectrum.bloom import make_table, query_solid
+    from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import bloom_insert
     from kmerax_torch.spectrum.exact import sentinel_rows
 
@@ -863,9 +955,9 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
         f"{statistics.mean(secs) * 1e3:.4f} ms, total {sum(secs):.4f} s")
 
     t = threshold
-    solid_fn = lambda cw, v: query_solid(params, table, t, cw, v)
     ev = make_eval_fn(params, table, t)
-    first = []
+    wf = make_window_fn(params, table, t)
+    first, first_k2 = [], []
 
     def eval_fn(bases, lengths, last_j, ent_r, ent_i):
         if not first:
@@ -873,30 +965,39 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
                           ent_r.to(torch.int32), ent_i.to(torch.int32)))
         return ev(bases, lengths, last_j, ent_r, ent_i)
 
-    def correct(bases, lengths):
-        correct_batch(bases, lengths, cfg.k, t, solid_fn, rounds=cfg.rounds,
-                      max_runs=cfg.max_runs, max_edits=cfg.max_edits,
-                      eval_fn=eval_fn)
+    def window_fn(bases, last_j):
+        if not first_k2:
+            first_k2.append((bases.clone(), last_j.clone()))
+        return wf(bases, last_j)
 
-    correct(*keep[0])                   # warm-up; records the K3 call
+    def correct(bases, lengths):
+        correct_batch(bases, lengths, cfg.k, t, None, rounds=cfg.rounds,
+                      max_runs=cfg.max_runs, max_edits=cfg.max_edits,
+                      eval_fn=eval_fn, window_fn=window_fn)
+
+    correct(*keep[0])             # warm-up; records the K2 and K3 calls
     for stage, fn, names in (
-            ("correct", correct, ("bloom_query_solid_kernel",
-                                  "correct_eval_scores_kernel")),
             ("count", lambda b, _: bloom_insert(table, b, params, pending, 0),
-             ("bloom_insert_kernel",))):
-        wall, dev, by = _profile_window(fn, keep, names)
+             ("bloom_insert_kernel",)),
+            ("correct", correct, ("bloom_query_solid_kernel",
+                                  "correct_eval_scores_kernel"))):
+        wall, dev, by, n_k = _profile_window(fn, keep, names)
         if dev is None:
             num(f"{tag} profiler, {len(keep)} {stage} batches: wall "
                 f"{wall:.4f} s; the profiler showed no device time")
             continue
+        per = (f"{n_k / (len(keep) * cfg.rounds):.1f} per round "
+               f"({cfg.rounds} rounds a batch)" if stage == "correct"
+               else f"{n_k / len(keep):.1f} per batch")
         num(f"{tag} profiler, {len(keep)} {stage} batches: wall {wall:.4f} "
-            f"s, device busy {dev:.4f} s ({dev / wall:.2%}); " + ", ".join(
+            f"s, device busy {dev:.4f} s ({dev / wall:.2%}); {n_k} kernels "
+            f"launched, {per}; " + ", ".join(
                 f"{n} {s:.4f} s ({s / wall:.2%} of the wall)"
                 for n, s in by.items()))
     args = first[0]
     num(f"{tag} first correct batch: K3 called with {args[3].numel()} "
         f"entries, {int((args[4] >= 0).sum())} of them live")
-    return params, table, args
+    return params, table, args, first_k2[0]
 
 
 def phase_config1(workdir: str, recs=None,
@@ -941,19 +1042,27 @@ def phase_config1(workdir: str, recs=None,
     if result["unitigs"] <= 0 or result["reads"] != n_reads:
         raise AssertionError(f"bad pipeline result {result}")
 
-    # outside the launch count: device steps, profiler shares, and K3 on
-    # the main path's own call and at its entry count
+    # outside the launch count: device steps, profiler shares, K2 on the
+    # main path's own call, and K3 on its own call and at its entry count
+    # (K2's first: K3's cases refill the table)
     import numpy as np
 
-    params, table, args = _device_steps("phase4", paths, C1_CFG,
-                                        result["threshold"])
+    params, table, args, k2_args = _device_steps("phase4", paths, C1_CFG,
+                                                 result["threshold"])
+    k2 = _check_k2(None, table, DEVICE, ks=(),
+                   real=(params, result["threshold"], k2_args),
+                   phase="phase4")
     k3 = _check_k3(np.random.default_rng(SEED + 3), table, _fill3,
                    args[3].numel(), DEVICE,
                    real=(params, result["threshold"], args), phase="phase4")
     del table
     torch.cuda.empty_cache()
     if recs is not None:
-        recs[[r["name"] for r in recs].index("correct_eval_scores")] = k3
+        names = [r["name"] for r in recs]
+        i = names.index("bloom_query_solid")
+        k2["max_abs_err"] = max(k2["max_abs_err"], recs[i]["max_abs_err"])
+        recs[i] = k2
+        recs[names.index("correct_eval_scores")] = k3
     return {"config1_pipeline": launches}
 
 

@@ -1,4 +1,5 @@
-// Counting-Bloom insert (K1) and solidity probe (K2) for Hopper.
+// Counting-Bloom insert (K1) and round-start window solidity (K2) for
+// Hopper.
 //
 // K1 kmerax_bloom_insert replaces the Pallas kernel
 //   kmerax/spectrum/pallas_bloom.py::_insert_kernel (via insert_pallas),
@@ -6,40 +7,64 @@
 // kernel's producer (extract, canonical form, hash; kmerax/pipeline/run.py
 // count step).
 // K2 kmerax_bloom_query_solid replaces
-//   kmerax/spectrum/pallas_bloom.py::_query_kernel (via query_solid_pallas).
+//   kmerax/spectrum/pallas_bloom.py::_query_kernel (via query_solid_pallas)
+// as the correct round calls it, kmerax/ops/correct.py::_window_counts:
+// it takes the round's (B, L) int32 read batch and last_j and returns the
+// solidity of every window, with the addressing done in the kernel.
 //
 // Addressing (DESIGN.md §5): every k-mer owns one 128-counter block row of
 // the int32 table and d <= 4 lanes in it, 7 bits each of its second hash.
 // K1 adds +1 per probe (a repeated lane gets +2); K2 reports whether every
 // probed lane is >= t. Invalid k-mers add nothing and report 0.
 //
-// K1 takes the read batch itself, (B, L) int8 bases, and does its own
-// addressing: eager PyTorch fuses nothing, so computing the addresses in
-// torch cost the count step ~270 dispatched ops and their int64
-// temporaries per batch around one launch. One warp per read (8 reads per
-// block): the warp packs the read once into shared memory (2-bit words and
-// an N bitmask, kmerax.cuh), then lane l takes windows l, l+32, ...: W
-// funnel shifts give the window's words, the N bits its validity, and the
-// shared helpers its canonical form and hash. Each probe is one atomicAdd
-// whose result is unused (a RED in L2). With a pending buffer the kernel
-// also writes the window's row: the canonical words, or all 0xFFFFFFFF for
-// an invalid window (the bytes of to_u32_bits(mask_invalid(...))). The
-// valid count is a ballot per warp and one 64-bit atomicAdd per block.
+// Both take the read batch itself and do their own addressing: eager
+// PyTorch fuses nothing, so computing the addresses in torch cost ~270
+// dispatched ops and their int64 temporaries per batch around one launch
+// (K1's count step; K2's _window_counts, twice a batch). One warp per read
+// (8 reads per block): the warp packs the read once into shared memory
+// (2-bit words and an N bitmask, kmerax.cuh), then lane l takes windows l,
+// l+32, ...: W funnel shifts give the window's words, the N bits its
+// validity, and the shared helpers its canonical form and hash.
+// K1: each probe is one atomicAdd whose result is unused (a RED in L2).
+// With a pending buffer the kernel also writes the window's row: the
+// canonical words, or all 0xFFFFFFFF for an invalid window (the bytes of
+// to_u32_bits(mask_invalid(...))). The valid count is a ballot per warp and
+// one 64-bit atomicAdd per block.
+// K2: a window is solid iff it starts in [0, last_j[r]], holds no base >= 4
+// and passes the two-round probe (kmerax.cuh, shared with K3); each warp
+// step writes 32 consecutive output bytes.
 //
-// What bounds K1 on an H100: the table is 2^log2_width int32 counters,
+// What bounds them on an H100: the table is 2^log2_width int32 counters,
 // 2 GiB at log2_width=29, far above the 50 MB L2, so each k-mer touches
-// one random 512-byte row: ~3.6 distinct 32-byte sectors for d=4, each
-// read and written once. That sector floor, not the ~40 bytes per k-mer
-// of the byte bound, is what a kernel can approach; the addressing's
-// ~130 int32 operations per k-mer sit under it. K2 (unchanged) is bound
-// the same way by the sectors its probes read.
+// one random 512-byte row: ~3.6 distinct 32-byte sectors for K1's d=4,
+// each read and written once, and for K2 one sector for a k-mer that fails
+// its first lane, up to d for a solid one. That sector floor, not the few
+// bytes per k-mer of the byte bound, is what a kernel can approach; the
+// addressing's ~130 int32 operations per k-mer sit under it.
 
 #include "kmerax.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;    // K1: reads per block
+constexpr int kWarps = kThreads / 32;    // reads per block
+
+// the warp packs one read of L bases (positions past L read as 4) into P
+// (2 nch + 1 code words, the last one 0) and N (nch N-mask words); every
+// lane calls it
+template <typename Base>
+static __device__ __forceinline__ void pack_read(uint32_t* P, uint32_t* N,
+                                                 const Base* row, int L,
+                                                 int lane) {
+    const int nch = (L + 31) / 32;
+    for (int c = 0; c < nch; ++c) {
+        const int p = 32 * c + lane;
+        const int b = p < L ? (int)row[p] : 4;
+        kmerax_pack_chunk(P, N, c, lane, (uint32_t)b, b >= 4);
+    }
+    if (lane == 0) P[2 * nch] = 0;
+    __syncwarp();
+}
 
 template <int W>
 __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
@@ -58,14 +83,7 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
     const int64_t r = (int64_t)blockIdx.x * kWarps + warp;
     unsigned n_ok = 0;                       // the same on every lane
     if (r < B) {                             // warp-uniform
-        const int8_t* row = bases + r * L;
-        for (int c = 0; c < nch; ++c) {
-            const int p = 32 * c + lane;
-            const int b = p < L ? (int)row[p] : 4;
-            kmerax_pack_chunk(P, N, c, lane, (uint32_t)b, b >= 4);
-        }
-        if (lane == 0) P[2 * nch] = 0;
-        __syncwarp();
+        pack_read(P, N, bases + r * L, L, lane);
         const int nk = L - k + 1;
         for (int j0 = 0; j0 < nk; j0 += 32) {
             const int j = j0 + lane;
@@ -99,19 +117,38 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
         atomicAdd(n_valid, (unsigned long long)block_valid);
 }
 
+template <int W>
 __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
-                                         const int32_t* __restrict__ block,
-                                         const int32_t* __restrict__ lanepack,
-                                         const uint8_t* __restrict__ valid,
-                                         uint8_t* __restrict__ out, int64_t n,
-                                         int d, int t) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    out[i] = valid[i] && kmerax_probe_solid(table, (uint32_t)block[i],
-                                            (uint32_t)lanepack[i], d, t);
+                                         const int32_t* __restrict__ bases,
+                                         int B, int L, int k,
+                                         const int32_t* __restrict__ last_j,
+                                         uint32_t block_mask, int d, int t,
+                                         uint8_t* __restrict__ out) {
+    extern __shared__ uint32_t smem[];
+    const int nch = (L + 31) / 32;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t r = (int64_t)blockIdx.x * kWarps + warp;
+    if (r >= B) return;                      // warp-uniform; no barrier
+    const int lj = last_j[r];
+    uint32_t* P = smem + warp * (3 * nch + 1);
+    uint32_t* N = P + 2 * nch + 1;
+    pack_read(P, N, bases + r * L, L, lane);
+    const int nk = L - k + 1;
+    uint8_t* orow = out + r * nk;
+    for (int j0 = 0; j0 < nk; j0 += 32) {
+        const int j = j0 + lane;
+        bool solid = false;
+        if (j < nk && j <= lj && kmerax_span_clear(N, j, k)) {
+            uint32_t words[W];
+            kmerax_window_words<W>(P, j, k, words);
+            kmerax_canonicalize(words, W, k);
+            const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
+            const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
+            solid = kmerax_probe_two_rounds(table, h1 & block_mask, h2, d, t);
+        }
+        if (j < nk) orow[j] = solid;
+    }
 }
-
-unsigned grid_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <int W>
 cudaError_t launch_insert(int32_t* table, const int8_t* bases, int B, int L,
@@ -125,6 +162,20 @@ cudaError_t launch_insert(int32_t* table, const int8_t* bases, int B, int L,
                              smem, stream>>>(table, bases, B, L, k,
                                              block_mask, d, pending, off,
                                              n_valid);
+    return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_query(const int32_t* table, const int32_t* bases, int B,
+                         int L, int k, const int32_t* last_j,
+                         uint32_t block_mask, int d, int t, uint8_t* out,
+                         cudaStream_t stream) {
+    const int nch = (L + 31) / 32;
+    const size_t smem = (size_t)kWarps * (3 * nch + 1) * sizeof(uint32_t);
+    if (smem > 48 * 1024) return cudaErrorInvalidValue;
+    bloom_query_solid_kernel<W><<<(unsigned)((B + kWarps - 1) / kWarps),
+                                  kThreads, smem, stream>>>(
+        table, bases, B, L, k, last_j, block_mask, d, t, out);
     return cudaGetLastError();
 }
 
@@ -151,15 +202,22 @@ extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
 }
 
 extern "C" int kmerax_bloom_query_solid(const int32_t* table,
-                                        const int32_t* block,
-                                        const int32_t* lanepack,
-                                        const uint8_t* valid, uint8_t* out,
-                                        int64_t n, int d, int t,
-                                        cudaStream_t stream) {
-    if (n > 0)
-        bloom_query_solid_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-            table, block, lanepack, valid, out, n, d, t);
-    return (int)cudaGetLastError();
+                                        const int32_t* bases, int B, int L,
+                                        int k, const int32_t* last_j,
+                                        uint32_t block_mask, int d, int t,
+                                        uint8_t* out, cudaStream_t stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    switch ((k + 15) / 16) {
+        case 1: return (int)launch_query<1>(table, bases, B, L, k, last_j,
+                                            block_mask, d, t, out, stream);
+        case 2: return (int)launch_query<2>(table, bases, B, L, k, last_j,
+                                            block_mask, d, t, out, stream);
+        case 3: return (int)launch_query<3>(table, bases, B, L, k, last_j,
+                                            block_mask, d, t, out, stream);
+        case 4: return (int)launch_query<4>(table, bases, B, L, k, last_j,
+                                            block_mask, d, t, out, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" const char* kmerax_cuda_error_string(int code) {

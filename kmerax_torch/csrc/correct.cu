@@ -43,20 +43,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSpanChunks = 4;           // 2k-1 <= 125 bases: 4 chunks of 32
 
-// both lanes of the d <= 4 probe, in two rounds
-static __device__ __forceinline__ bool probe_two_rounds(const int32_t* table,
-                                                        uint32_t block,
-                                                        uint32_t h2, int d,
-                                                        int t) {
-    const int32_t* row = table + (size_t)block * 128;
-    if (__ldg(row + (h2 & 127u)) < t) return false;
-    bool solid = true;
-#pragma unroll
-    for (int i = 1; i < 4; ++i)
-        if (i < d) solid &= __ldg(row + ((h2 >> (7 * i)) & 127u)) >= t;
-    return solid;
-}
-
 // WPV warps per (entry, variant): 1 for k <= 32, 2 for k <= 63
 template <int W, int WPV>
 __global__ void correct_eval_scores_kernel(
@@ -115,7 +101,8 @@ __global__ void correct_eval_scores_kernel(
             kmerax_canonicalize(words, W, k);
             const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
             const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = probe_two_rounds(table, h1 & block_mask, h2, d, t);
+            solid = kmerax_probe_two_rounds(table, h1 & block_mask, h2, d,
+                                            t);
         }
     }
     const int n = __popc(__ballot_sync(KMERAX_FULL_MASK, solid));

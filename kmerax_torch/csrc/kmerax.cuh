@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: the 2-bit codec, the
-// canonical form and the murmur3 probe hash over native uint32 words, and
-// the packed-window layout K1 and K3 build their k-mers from.
+// canonical form and the murmur3 probe hash over native uint32 words, the
+// two-round solidity probe of K2 and K3, and the packed-window layout K1-K3
+// build their k-mers from.
 // Bit-exact with kmerax_torch/core/{codec,hash,kmers}.py (DESIGN.md §§2-3, 5).
 #pragma once
 
@@ -57,21 +58,24 @@ static __device__ __forceinline__ uint32_t kmerax_kmer_hash(const uint32_t* word
     return h;
 }
 
-// solidity of one k-mer against the int32 counter table: every one of the
-// d probed lanes of its 128-counter block is >= t (d >= 1, so "at least one
-// lane probed" holds for every valid k-mer)
-static __device__ __forceinline__ bool kmerax_probe_solid(const int32_t* table,
-                                                   uint32_t block,
-                                                   uint32_t lanepack, int d,
-                                                   int t) {
+// solidity of one k-mer against the int32 counter table (K2, K3): every one
+// of the d <= 4 lanes of its 128-counter block row, lane i being bits
+// 7i..7i+6 of its second hash h2, is >= t. Two rounds: lane 0 first, and
+// the other d-1 together only if it passes, so a k-mer that is not solid
+// reads one sector and a solid one waits on two trips to memory instead of
+// d dependent ones.
+static __device__ __forceinline__ bool kmerax_probe_two_rounds(
+    const int32_t* table, uint32_t block, uint32_t h2, int d, int t) {
     const int32_t* row = table + (size_t)block * 128;
+    if (__ldg(row + (h2 & 127u)) < t) return false;
     bool solid = true;
-    for (int j = 0; j < d; ++j)
-        solid = solid && __ldg(row + ((lanepack >> (7 * j)) & 127u)) >= t;
+#pragma unroll
+    for (int i = 1; i < 4; ++i)
+        if (i < d) solid &= __ldg(row + ((h2 >> (7 * i)) & 127u)) >= t;
     return solid;
 }
 
-// ---- packed windows (K1, K3) ---------------------------------------------
+// ---- packed windows (K1, K2, K3) -----------------------------------------
 //
 // A warp packs a span of bases once into shared memory, 32 positions per
 // chunk c: P[2c] and P[2c+1] hold the 2-bit codes of positions 32c..32c+15

@@ -25,7 +25,7 @@ from kmerax_torch.utils import cuda
 
 MATCH, MISMATCH, GAP = 2, -3, -4
 NEG_INF = -(1 << 30)
-MAX_BAND = 63                       # 2*band+1 <= 127: at most 4 per lane
+MAX_BAND = 63                       # 2*band+1 <= 127
 
 
 def banded_align_scores_plain(query, target, qlen, tlen, band: int):
@@ -82,12 +82,38 @@ def banded_align_scores_plain(query, target, qlen, tlen, band: int):
     return torch.where(torch.abs(tlen - qlen) <= band, score, ninf)
 
 
+# K4's lanes per read (G): 4 was the fastest at band 15 and at band 63 in
+# chip_smoke.py's timing of every choice (PERF.md §6)
+LANE_CHOICES = (4, 8, 16, 32)
+LANES = 4
+
+_WARPS = 1                          # per K4 block (csrc/align.cu)
+_SMEM_LIMIT = 48 * 1024
+
+
+def _stage_bytes(n: int, band: int, lanes: int) -> int:
+    """Shared memory of one K4 block (csrc/align.cu stage_bytes): per read
+    n query codes and n + G*P + 2 target codes, in an odd number of words."""
+    need = -(-(2 * band + 1) // lanes)
+    P = 1 << (need - 1).bit_length()
+    words = (2 * n + lanes * P + 2 + 3) // 4
+    return _WARPS * 32 // lanes * 4 * (words | 1)
+
+
 def banded_align_scores(query: torch.Tensor, target: torch.Tensor,
                         qlen: torch.Tensor, tlen: torch.Tensor,
                         band: int) -> torch.Tensor:
     """K4: (B,) int32 banded global alignment scores S[qlen][tlen] of int32
     query (B, n) against target (B, m), NEG_INF where |tlen - qlen| > band
-    or no in-band path exists."""
+    or no in-band path exists. Base codes are 0..4."""
+    return banded_align_scores_lanes(query, target, qlen, tlen, band, LANES)
+
+
+def banded_align_scores_lanes(query: torch.Tensor, target: torch.Tensor,
+                              qlen: torch.Tensor, tlen: torch.Tensor,
+                              band: int, lanes: int) -> torch.Tensor:
+    """`banded_align_scores` with K4's lanes per read given (one of
+    LANE_CHOICES), for timing every layout."""
     dev = query.device
     B, n = query.shape
     cuda.require(query, "query", torch.int32, dev, (B, n))
@@ -99,6 +125,10 @@ def banded_align_scores(query: torch.Tensor, target: torch.Tensor,
     cuda.require(tlen, "tlen", torch.int32, dev, (B,))
     if not 0 <= band <= MAX_BAND:
         raise ValueError(f"band must be in [0, {MAX_BAND}], got {band}")
+    if lanes not in LANE_CHOICES:
+        raise ValueError(f"lanes must be one of {LANE_CHOICES}, got {lanes}")
+    if n < 1 or _stage_bytes(n, band, lanes) > _SMEM_LIMIT:
+        raise ValueError(f"query width {n} outside what K4 stages")
     if dev.type == "cpu":
         return banded_align_scores_plain(query, target, qlen, tlen, band)
     out = torch.empty(B, dtype=torch.int32, device=dev)
@@ -106,7 +136,7 @@ def banded_align_scores(query: torch.Tensor, target: torch.Tensor,
         return out
     rc = cuda.lib().kmerax_banded_align_scores(
         query.data_ptr(), n, target.data_ptr(), target.shape[1],
-        qlen.data_ptr(), tlen.data_ptr(), B, band, out.data_ptr(),
+        qlen.data_ptr(), tlen.data_ptr(), B, band, lanes, out.data_ptr(),
         cuda.stream())
     cuda.LAUNCHES["banded_align_scores"] += 1
     cuda.check(rc, "banded_align_scores")

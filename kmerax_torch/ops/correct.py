@@ -4,8 +4,10 @@ kmerax/ops/correct.py; DESIGN.md §8 v2).
 Every candidate of a round is scored in one pass against the round-start
 read, then edits are applied together under the deterministic
 conflict-suppression rule. `solid_fn(canon_words, valid) -> bool` is the
-spectrum; `eval_fn` scores the candidate entries (kernel K3 on the card,
-ops/correct_kernels.py), `_eval_entries` is its plain version.
+spectrum; `window_fn` gives the round-start solidity of every window
+(kernel K2 on the card), `_window_counts` is its plain version; `eval_fn`
+scores the candidate entries (kernel K3 on the card), `_eval_entries` is
+its plain version (ops/correct_kernels.py builds both kernel functions).
 """
 
 from __future__ import annotations
@@ -215,14 +217,17 @@ def _apply(bases, edits, done, capped, livef, Q, k, max_cands, eval_fn):
 
 def correct_batch(bases, lengths, k: int, t: int, solid_fn,
                   rounds: int = 2, max_runs: int = 8, max_edits: int = 8,
-                  max_cands: int = 4, eval_fn=None):
+                  max_cands: int = 4, eval_fn=None, window_fn=None):
     """Correct a padded read batch (DESIGN.md §8 v2), bit-exact vs oracle.
 
     Args:
       bases: (B, L) integer bases, padded past `lengths` with 4.
       lengths: (B,) int32 true read lengths.
       solid_fn: (canon_words, valid) -> bool solidity (count >= t, invalid
-        -> False).
+        -> False); unused when both window_fn and eval_fn are given.
+      window_fn: optional round-start solidity (bases (B, L) int32,
+        last_j (B,) int32) -> (solid, existing) (B, L-k+1) bool, identical
+        to `_window_counts` with solid_fn (kernel K2 on the card).
       eval_fn: optional candidate evaluator
         (bases, lengths, last_j, ent_r, ent_i) -> (best_b, accept),
         identical to `_eval_entries` with solid_fn (kernel K3 on the card).
@@ -244,7 +249,10 @@ def correct_batch(bases, lengths, k: int, t: int, solid_fn,
         return _eval_entries(bs, lengths, last_j, ent_r, ent_i, k, solid_fn)
 
     for _ in range(rounds):
-        solid, existing = _window_counts(bases, last_j, k, solid_fn)
+        if window_fn is not None:
+            solid, existing = window_fn(bases, last_j)
+        else:
+            solid, existing = _window_counts(bases, last_j, k, solid_fn)
         all_solid = torch.all(solid | ~existing, dim=1)
         any_solid = torch.any(solid, dim=1)
         done = done | all_solid | ~any_solid

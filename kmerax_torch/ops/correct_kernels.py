@@ -1,5 +1,6 @@
 """Correction kernel K3 (fused candidate scoring): the CUDA wrapper and its
-plain PyTorch version.
+plain PyTorch version; and the correct round's two kernel entry points for
+ops/correct.py::correct_batch (K2's window solidity, K3's scoring).
 
 K3 replaces kmerax/ops/pallas_correct.py::_prep_kernel with the solidity
 probe (pallas_bloom.py::_query_kernel) fused in (source: csrc/correct.cu).
@@ -15,9 +16,8 @@ from __future__ import annotations
 import torch
 
 from kmerax_torch.ops.correct import _accept, _eval_scores
-from kmerax_torch.spectrum.bloom import BloomParams
-from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
-    query_solid_plain
+from kmerax_torch.spectrum.bloom import BloomParams, query_solid
+from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid
 from kmerax_torch.utils import cuda
 
 
@@ -25,16 +25,8 @@ def eval_scores_plain(params: BloomParams, table, t, bases, lengths, last_j,
                       ent_r, ent_i) -> torch.Tensor:
     """Plain version of K3 on any device: ops/correct.py::_eval_scores
     probing the table through the plain solidity gather."""
-    d = params.num_hashes
-
-    def solid_fn(cw, v):
-        block, lp = blocks_lanepack(params, cw)
-        s = query_solid_plain(table, block.reshape(-1), lp.reshape(-1),
-                              v.reshape(-1), d, t)
-        return s.view(v.shape)
-
     return _eval_scores(bases, lengths, last_j, ent_r, ent_i, params.k,
-                        solid_fn)
+                        lambda cw, v: query_solid(params, table, t, cw, v))
 
 
 def correct_eval_scores(params: BloomParams, table: torch.Tensor, t: int,
@@ -76,3 +68,17 @@ def make_eval_fn(params: BloomParams, table: torch.Tensor, t: int):
         return _accept(scores, bases, ent_r, ent_i)
 
     return eval_fn
+
+
+def make_window_fn(params: BloomParams, table: torch.Tensor, t: int):
+    """window_fn(bases, last_j) -> (solid, existing) for
+    ops/correct.py::correct_batch: the round-start solidity of every window
+    of the (B, L) int32 batch in one K2 launch, and the windows that start
+    in [0, last_j]."""
+    def window_fn(bases, last_j):
+        solid = bloom_query_solid(table, bases, last_j, params, t)
+        j = torch.arange(solid.shape[1], dtype=torch.int32,
+                         device=bases.device)
+        return solid, j[None, :] <= last_j[:, None]
+
+    return window_fn

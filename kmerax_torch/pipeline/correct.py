@@ -15,10 +15,9 @@ from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.io.batcher import BackgroundBatcher
 from kmerax_torch.io.fastq import FastqWriter
 from kmerax_torch.ops.correct import correct_batch
-from kmerax_torch.ops.correct_kernels import make_eval_fn
+from kmerax_torch.ops.correct_kernels import make_eval_fn, make_window_fn
 from kmerax_torch.pipeline.count import CountState, bloom_params, \
     to_device_batch
-from kmerax_torch.spectrum.bloom import query_solid
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
 
@@ -28,13 +27,14 @@ log = get_logger("kmerax_torch.pipeline")
 def make_correct_step(params, table, t, *, rounds, max_runs, max_edits):
     """step(bases, lengths) -> (corrected int8 (B, L), n_edits (B,)) on the
     table's device."""
-    solid_fn = lambda cw, v: query_solid(params, table, t, cw, v)
+    window_fn = make_window_fn(params, table, t)
     eval_fn = make_eval_fn(params, table, t)
 
     def step(bases, lengths):
-        fixed, ne = correct_batch(bases, lengths, params.k, t, solid_fn,
+        fixed, ne = correct_batch(bases, lengths, params.k, t, None,
                                   rounds=rounds, max_runs=max_runs,
-                                  max_edits=max_edits, eval_fn=eval_fn)
+                                  max_edits=max_edits, eval_fn=eval_fn,
+                                  window_fn=window_fn)
         return fixed.to(bases.dtype), ne
 
     return step

@@ -6,7 +6,10 @@ a k-mer's d probes all fall in one block row. The port has the "hash"
 bucket scheme (DESIGN.md §5a) and i32 counters only. The table is updated
 in place (a GPU table at real size is gigabytes; JAX's functional update
 has no counterpart the port needs). Inserts go through kernel K1
-(`bloom_kernels.bloom_insert`), which takes the read batch itself.
+(`bloom_kernels.bloom_insert`) and the correct round's window solidity
+through kernel K2 (`bloom_kernels.bloom_query_solid`); both take the read
+batch itself. `query_solid` here is the plain probe of given k-mers, for
+the tests and K3's plain version.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
-    bloom_query_solid
+    query_solid_plain
 
 
 @dataclass(frozen=True)
@@ -42,10 +45,10 @@ def query_solid(params: BloomParams, table: torch.Tensor, t: int,
                 canon_words: torch.Tensor,
                 valid: torch.Tensor) -> torch.Tensor:
     """Solidity (count >= t over every probe; invalid -> False) of
-    canonical k-mers (..., W) against the int32 table (kernel K2 on the
-    card). Equals the JAX package's `query(...) >= t` and `query_solid` on
-    a bitmap built with t."""
+    canonical k-mers (..., W) against the int32 table, on any device.
+    Equals the JAX package's `query(...) >= t` and `query_solid` on a
+    bitmap built with t."""
     block, lp = blocks_lanepack(params, canon_words)
-    solid = bloom_query_solid(table, block.reshape(-1), lp.reshape(-1),
+    solid = query_solid_plain(table, block.reshape(-1), lp.reshape(-1),
                               valid.reshape(-1), params.num_hashes, t)
     return solid.view(valid.shape)

@@ -1,13 +1,14 @@
-"""Counting-Bloom kernels K1 (insert) and K2 (solidity probe): the CUDA
+"""Counting-Bloom kernels K1 (insert) and K2 (window solidity): the CUDA
 wrappers and their plain PyTorch versions (sources: csrc/bloom.cu).
 
 K1 replaces kmerax/spectrum/pallas_bloom.py::_insert_kernel together with
 the count step's addressing: it takes the (B, L) int8 read batch and does
 extraction, canonical form, hashing, the insert, the pending rows and the
-valid count in one launch. K2 replaces pallas_bloom.py::_query_kernel and
-takes the Pallas kernels' addressing form: per k-mer a block row (int32),
-a lanepack of d 7-bit lanes (int32) and a validity flag. The table is the
-flat (nrows * 128,) int32 counter array.
+valid count in one launch. K2 replaces pallas_bloom.py::_query_kernel as
+the correct round calls it (kmerax/ops/correct.py::_window_counts): it
+takes the round's (B, L) int32 read batch and last_j and returns the
+solidity of every window, addressing them itself, in one launch. The table
+is the flat (nrows * 128,) int32 counter array.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback.
@@ -29,8 +30,8 @@ if TYPE_CHECKING:
     from kmerax_torch.spectrum.bloom import BloomParams
 
 _CHUNK = 1 << 18                    # k-mers per one-hot slab (plain insert)
-_K1_WARPS = 8                       # reads per K1 block (csrc/bloom.cu)
-_SMEM_LIMIT = 48 * 1024             # K1's shared memory without opt-in
+_WARPS = 8                          # reads per K1 and K2 block (csrc/bloom.cu)
+_SMEM_LIMIT = 48 * 1024             # their shared memory without opt-in
 
 
 def blocks_lanepack(params: BloomParams, canon_words: torch.Tensor):
@@ -86,18 +87,25 @@ def bloom_insert_plain(table: torch.Tensor, bases: torch.Tensor,
     return valid.sum()
 
 
-def _check_insert(table, bases, params, pending, off):
+def _check_batch(table, bases, dtype, params):
+    """The table and the (B, L) read batch K1 and K2 take."""
     dev = table.device
     cuda.require(table, "table", torch.int32, dev, (params.width,))
-    cuda.require(bases, "bases", torch.int8, dev)
+    cuda.require(bases, "bases", dtype, dev)
     if bases.dim() != 2:
         raise ValueError(f"bases: shape {tuple(bases.shape)}, expected (B, L)")
-    B, L = bases.shape
+    L = bases.shape[1]
     if L < params.k:
         raise ValueError(f"read length {L} < k {params.k}")
-    if _K1_WARPS * (3 * -(-L // 32) + 1) * 4 > _SMEM_LIMIT:
+    if _WARPS * (3 * -(-L // 32) + 1) * 4 > _SMEM_LIMIT:
         raise ValueError(f"read length {L} needs more shared memory than "
-                         f"K1 takes")
+                         f"the kernels take")
+
+
+def _check_insert(table, bases, params, pending, off):
+    _check_batch(table, bases, torch.int8, params)
+    dev = table.device
+    B, L = bases.shape
     if pending is not None:
         cuda.require(pending, "pending", torch.int32, dev)
         rows = B * (L - params.k + 1)
@@ -140,31 +148,42 @@ def query_solid_plain(table: torch.Tensor, block: torch.Tensor,
     return torch.all(table[idx] >= t, dim=-1) & valid
 
 
-def _check_query(table, block, lanepack, valid, d):
-    dev = table.device
-    n = block.shape[0]
-    cuda.require(table, "table", torch.int32, dev)
-    if table.dim() != 1 or table.shape[0] % 128:
-        raise ValueError("table must be flat with a multiple of 128 counters")
-    cuda.require(block, "block", torch.int32, dev, (n,))
-    cuda.require(lanepack, "lanepack", torch.int32, dev, (n,))
-    cuda.require(valid, "valid", torch.bool, dev, (n,))
-    if not 1 <= d <= 4:
-        raise ValueError(f"num_hashes must be in [1, 4], got {d}")
+def bloom_query_solid_plain(table: torch.Tensor, bases: torch.Tensor,
+                            last_j: torch.Tensor, params: BloomParams,
+                            t: int) -> torch.Tensor:
+    """Plain version of K2, `_window_counts(...)[0]` of the JAX package
+    with the Bloom solidity: extract the k-mers of the (B, L) batch,
+    canonicalize and address them, probe, and keep the windows that start
+    in [0, last_j]. Returns (B, L-k+1) bool."""
+    k = params.k
+    words, valid = extract_kmers(bases, k)
+    canon, _ = canonical_words(words, k)
+    block, lp = blocks_lanepack(params, canon)
+    solid = query_solid_plain(table, block.reshape(-1), lp.reshape(-1),
+                              valid.reshape(-1), params.num_hashes, t)
+    j = torch.arange(valid.shape[1], dtype=torch.int32, device=bases.device)
+    return solid.view(valid.shape) & (j[None, :] <= last_j[:, None])
 
 
-def bloom_query_solid(table: torch.Tensor, block: torch.Tensor,
-                      lanepack: torch.Tensor, valid: torch.Tensor,
-                      d: int, t: int) -> torch.Tensor:
-    """K2: (N,) bool, every probed lane >= t and the k-mer valid."""
-    _check_query(table, block, lanepack, valid, d)
+def bloom_query_solid(table: torch.Tensor, bases: torch.Tensor,
+                      last_j: torch.Tensor, params: BloomParams,
+                      t: int) -> torch.Tensor:
+    """K2: the round-start solidity of every window of the (B, L) int32
+    read batch, (B, L-k+1) bool: window j of read r is solid iff it starts
+    in [0, last_j[r]], holds no base >= 4, and every one of the d probed
+    lanes of its canonical k-mer is >= t."""
+    _check_batch(table, bases, torch.int32, params)
+    cuda.require(last_j, "last_j", torch.int32, table.device,
+                 (bases.shape[0],))
     if table.device.type == "cpu":
-        return query_solid_plain(table, block, lanepack, valid, d, t)
-    out = torch.empty(block.shape[0], dtype=torch.bool, device=table.device)
+        return bloom_query_solid_plain(table, bases, last_j, params, t)
+    B, L = bases.shape
+    out = torch.empty((B, L - params.k + 1), dtype=torch.bool,
+                      device=table.device)
     rc = cuda.lib().kmerax_bloom_query_solid(
-        table.data_ptr(), block.data_ptr(), lanepack.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), block.shape[0], d, int(t),
-        cuda.stream())
+        table.data_ptr(), bases.data_ptr(), B, L, params.k,
+        last_j.data_ptr(), (1 << (params.log2_width - 7)) - 1,
+        params.num_hashes, int(t), out.data_ptr(), cuda.stream())
     cuda.LAUNCHES["bloom_query_solid"] += 1
     cuda.check(rc, "bloom_query_solid")
     return out

@@ -1,12 +1,13 @@
 """Device selection, and the build, load and launch bookkeeping of the
 port's CUDA kernels (kmerax_torch/csrc/*.cu).
 
-The kernels are compiled by `nvcc` into ONE shared library with a plain C
-interface and loaded with ctypes: no PyTorch headers, so the build takes
-seconds. The build happens at first use, into `kmerax_torch/_build/`, keyed
-by a hash of the sources and flags, so a checkout builds everything it
-needs from its own files. Nothing here runs at import time: this module
-imports on a machine without CUDA, where only the plain versions run.
+The kernels are compiled by `nvcc` (one process per source, in parallel)
+into ONE shared library with a plain C interface and loaded with ctypes: no
+PyTorch headers, so the build takes seconds. The build happens at first
+use, into `kmerax_torch/_build/`, keyed by a hash of the sources and
+flags, so a checkout builds everything it needs from its own files.
+Nothing here runs at import time: this module imports on a machine
+without CUDA, where only the plain versions run.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # launches per kernel wrapper: each wrapper adds one where it launches its
 # CUDA kernel and nowhere else (never on its plain CPU path), so a run can
@@ -76,22 +77,49 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile csrc/*.cu into the shared library unless the build for these
-    exact sources exists. Returns (path, seconds spent compiling)."""
+    exact sources exists: one nvcc per source, all started together, then
+    one link. Returns (path, seconds spent compiling and linking)."""
     so = library_path()
     if so.exists():
         return so, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    work = BUILD_DIR / f"{so.stem}.tmp{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    log, failed = [], []
+    try:
+        for cmd, proc in jobs:
+            out, _ = proc.communicate(timeout=900)
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+    finally:                       # a timeout leaves no compiler running
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / so.name),
+               *[str(o) for o in sorted(work.glob("*.o"))]]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
     secs = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(work / so.name, so)
+    shutil.rmtree(work, ignore_errors=True)
     return so, secs
 
 
@@ -108,10 +136,12 @@ def lib() -> ctypes.CDLL:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     L.kmerax_bloom_insert.argtypes = [
         P, P, I, I, I, ctypes.c_uint32, I, P, I64, P, P]
-    L.kmerax_bloom_query_solid.argtypes = [P, P, P, P, P, I64, I, I, P]
+    L.kmerax_bloom_query_solid.argtypes = [
+        P, P, I, I, I, P, ctypes.c_uint32, I, I, P, P]
     L.kmerax_correct_eval_scores.argtypes = [
         P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, P, P]
-    L.kmerax_banded_align_scores.argtypes = [P, I, P, I, P, P, I64, I, P, P]
+    L.kmerax_banded_align_scores.argtypes = [
+        P, I, P, I, P, P, I64, I, I, P, P]
     for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_query_solid,
                L.kmerax_correct_eval_scores, L.kmerax_banded_align_scores):
         fn.restype = I

@@ -27,6 +27,16 @@ def reads_with_ns(seed: int, B: int, L: int, k: int, n_rate=0.004,
     return reads, lengths
 
 
+def with_short_reads(reads, lengths, k: int):
+    """Copies where read 1 is k-1 bases long and read 2 three, padded with
+    4: reads with no window (last_j < 0)."""
+    reads, lengths = reads.copy(), lengths.copy()
+    for i, ln in ((1, k - 1), (2, 3)):
+        lengths[i] = ln
+        reads[i, ln:] = 4
+    return reads, lengths
+
+
 def t(x) -> torch.Tensor:
     """numpy (or JAX array via numpy) -> CPU tensor; uint32 becomes int64
     words in [0, 2^32), the port's representation."""

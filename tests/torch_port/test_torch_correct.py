@@ -1,7 +1,8 @@
 """kmerax_torch.ops.correct == kmerax's: the plain version of kernel K3
 (`_eval_entries`) against the fused Pallas kernel in interpret mode and the
-XLA `_eval_entries`; `correct_batch`; and the correct stage fed the JAX
-package's count state through count_state_from_numpy. Exact: tolerance 0.
+XLA `_eval_entries`; `correct_batch`, with the plain window solidity and
+with kernel K2's window_fn; the correct stage fed the JAX package's count
+state through count_state_from_numpy, and its K2 calls. Exact: tolerance 0.
 """
 
 import numpy as np
@@ -20,15 +21,16 @@ from kmerax.pipeline import run_count as j_run_count
 from kmerax.spectrum import bloom as jbloom
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.ops.correct import _eval_entries, correct_batch
+from kmerax_torch.ops import correct_kernels
 from kmerax_torch.ops.correct_kernels import correct_eval_scores, \
-    make_eval_fn
+    make_eval_fn, make_window_fn
 from kmerax_torch.pipeline.correct import run_correct
-from kmerax_torch.pipeline.count import count_state_from_numpy
+from kmerax_torch.pipeline.count import count_state_from_numpy, run_count
 from kmerax_torch.spectrum import bloom
 from kmerax_torch.utils import cuda
 from sim import ecoli_like, make_fastq
 
-from parity import n, reads_with_ns, t
+from parity import n, reads_with_ns, t, with_short_reads
 
 LW = 15
 
@@ -138,6 +140,24 @@ def test_correct_batch_matches_jax(k):
     np.testing.assert_array_equal(reads, n(t(reads)))   # input untouched
 
 
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_correct_batch_with_k2_window_fn_matches_jax(k):
+    """The card's wiring on the CPU: K2's window_fn and K3's eval_fn, no
+    solid_fn; reads shorter than k included."""
+    jp, table, reads, lengths, _ = _setup(k, seed=6)
+    reads, lengths = with_short_reads(reads, lengths, k)
+    ref, ref_ne = j_correct_batch(jnp.asarray(reads), jnp.asarray(lengths),
+                                  k, 2, solid_fn=_j_solid(jp, table, 2))
+    p = bloom.BloomParams(k, LW, 4)
+    tt = t(table).to(torch.int32)
+    got, got_ne = correct_batch(t(reads).to(torch.int8), t(lengths), k, 2,
+                                None, eval_fn=make_eval_fn(p, tt, 2),
+                                window_fn=make_window_fn(p, tt, 2))
+    np.testing.assert_array_equal(n(got), np.asarray(ref))
+    np.testing.assert_array_equal(n(got_ne), np.asarray(ref_ne))
+    assert np.asarray(ref_ne).sum() > 0
+
+
 @pytest.mark.parametrize("rounds", [1, 2])
 def test_correct_batch_error_pairs(rounds):
     """Two substitutions k-2 .. k+1 apart in each read: the conflict rule's
@@ -188,4 +208,31 @@ def test_run_correct_from_jax_count_state(tmp_path):
                         str(tmp_path / "t.fastq"), device="cpu")
     assert (tmp_path / "t.fastq").read_bytes() == \
         (tmp_path / "j.fastq").read_bytes()
+    assert stats["reads"] == len(reads) and stats["edited_reads"] > 0
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_run_correct_calls_k2_once_per_round(tmp_path, monkeypatch, rounds):
+    """The round-start solidity is one K2 call on the (B, L) int32 batch
+    per round per batch."""
+    _, reads = ecoli_like(seed=33, genome_len=1500, coverage=20,
+                          read_len=100, error_rate=0.01)
+    fq = tmp_path / "r.fastq"
+    fq.write_bytes(make_fastq(reads))
+    calls = []
+
+    def spy(table, bases, last_j, params, t_solid):
+        calls.append((bases.dtype, tuple(bases.shape), last_j.dtype))
+        return bloom_query_solid(table, bases, last_j, params, t_solid)
+
+    from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid
+    monkeypatch.setattr(correct_kernels, "bloom_query_solid", spy)
+    kw = dict(k=31, bloom_log2_width=16, batch_reads=64, max_read_len=100,
+              exact_capacity=1 << 15, rounds=rounds)
+    state = run_count(KmeraxConfig(**kw), [str(fq)], device="cpu")
+    stats = run_correct(KmeraxConfig(**kw), [str(fq)], state,
+                        str(tmp_path / "t.fastq"), device="cpu")
+    n_batches = -(-len(reads) // 64)
+    assert len(calls) == rounds * n_batches
+    assert set(calls) == {(torch.int32, (64, 100), torch.int32)}
     assert stats["reads"] == len(reads) and stats["edited_reads"] > 0

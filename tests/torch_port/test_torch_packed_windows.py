@@ -1,9 +1,12 @@
-"""A numpy emulation of how kernels K1 and K3 build k-mers (csrc/kmerax.cuh:
-kmerax_pack_chunk, kmerax_window_words, kmerax_span_clear; K3's center OR
-in csrc/correct.cu), held against the JAX package's extract_kmers and
-canonical_words and against the plain K3 scores. The card is the only
-place the kernels run, so this checks their word layout, funnel-shift
-offsets and N masks before a chip call. Exact: tolerance 0."""
+"""A numpy emulation of how kernels K1, K2 and K3 build k-mers
+(csrc/kmerax.cuh: kmerax_pack_chunk, kmerax_window_words,
+kmerax_span_clear; K3's center OR in csrc/correct.cu) and how K2 and K3
+probe them (kmerax_probe_two_rounds), held against the JAX package's
+extract_kmers, canonical_words and round-start window solidity
+(`_window_counts` with the Pallas probe in interpret mode) and against the
+plain K3 scores. The card is the only place the kernels run, so this
+checks their word layout, funnel-shift offsets, N masks, the last_j mask
+and the probe before a chip call. Exact: tolerance 0."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,8 +20,10 @@ from kmerax.spectrum import bloom as jbloom
 from kmerax_torch.core.codec import canonical_words
 from kmerax_torch.ops.correct import _accept, _eval_scores
 from kmerax_torch.spectrum import bloom
+from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack
 
 from parity import n, reads_with_ns, t
+from test_torch_spectrum import j_window_solid, k2_case
 
 M32 = np.uint64(0xFFFFFFFF)
 
@@ -98,6 +103,44 @@ def test_k1_packed_windows_match_extract_and_canonical(k):
     jc, _ = j_canonical(jnp.asarray(jw), k)
     np.testing.assert_array_equal(n(canon)[valid], np.asarray(jc)[jv])
     assert 0 < valid.sum() < valid.size          # Ns and padding present
+
+
+def probe_two_rounds(table, block, lanepack, d, t_solid):
+    """kmerax_probe_two_rounds: lane 0 first, the other d-1 lanes only
+    where it passed (lanes read past a failed lane 0 would not change the
+    answer, so the emulation reads them and masks)."""
+    row = block.astype(np.int64) * 128
+    lane = lambda i: (lanepack.astype(np.int64) >> (7 * i)) & 127
+    solid = table[row + lane(0)] >= t_solid
+    rest = np.ones_like(solid)
+    for i in range(1, d):
+        rest &= table[row + lane(i)] >= t_solid
+    return solid & rest
+
+
+def k2_solid(bases, last_j, table, params, t_solid):
+    """K2's (B, L-k+1) solidity: K1's packed windows of the int32 batch,
+    counted where the window starts in [0, last_j] and holds no N, then
+    canonical form, address and the two-round probe."""
+    k = params.k
+    words, valid = k1_windows(bases, k)
+    nk = words.shape[1]
+    live = valid & (np.arange(nk)[None, :] <= last_j[:, None])
+    canon, _ = canonical_words(t(words.astype(np.int64)), k)
+    block, lp = blocks_lanepack(params, canon)
+    solid = probe_two_rounds(table, n(block), n(lp), params.num_hashes,
+                             t_solid)
+    return live & solid
+
+
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_k2_warp_matches_jax_window_counts(k):
+    jp, table, reads, lengths, last_j = k2_case(k, 90 + k)
+    want = j_window_solid(jp, table, reads, last_j, 2)
+    got = k2_solid(reads, last_j, np.asarray(table),
+                   bloom.BloomParams(k, 15, 4), 2)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < (last_j + 1).clip(0).sum()
 
 
 def k3_scores(bases, lengths, last_j, ent_r, ent_i, k, solid_fn):

@@ -1,8 +1,8 @@
 """kmerax_torch.spectrum and the count stage == kmerax's: the plain
-insert inside kernel K1 and the plain version of K2 (solidity probe)
-against the XLA path and the Pallas kernels in interpret mode, and
-run_count's table, spectrum, histogram and threshold. Exact: tolerance
-0."""
+insert inside kernel K1, the plain probe and the plain version of K2 (the
+correct round's window solidity) against the XLA path and the Pallas
+kernels in interpret mode, and run_count's table, spectrum, histogram and
+threshold. Exact: tolerance 0."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,20 +12,21 @@ import torch
 from kmerax.config import KmeraxConfig as JConfig
 from kmerax.core import canonical_words as j_canonical
 from kmerax.core import extract_kmers as j_extract
+from kmerax.ops.correct import _window_counts as j_window_counts
 from kmerax.pipeline import run_count as j_run_count
 from kmerax.spectrum import bloom as jbloom
 from kmerax.spectrum.pallas_bloom import insert_pallas, query_solid_pallas
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.spectrum import bloom
 from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
-    bloom_insert, bloom_query_solid, insert_plain
+    bloom_insert, bloom_query_solid, bloom_query_solid_plain, insert_plain
 from kmerax_torch.spectrum.exact import np_merge_counted
 from kmerax_torch.spectrum.histogram import solid_threshold
 from kmerax_torch.pipeline.count import run_count
 from kmerax_torch.utils import cuda
 from sim import ecoli_like, make_fastq
 
-from parity import n, reads_with_ns, t
+from parity import n, reads_with_ns, t, with_short_reads
 
 
 def _canon(k, seed=0, B=100, L=100):
@@ -80,33 +81,85 @@ def test_query_solid_plain_matches_xla_and_pallas(t_solid):
     assert 0 < want.sum() < qvalid.sum()
 
 
+def k2_case(k, seed, B=32, L=100, LW=15, t_solid=2):
+    """A table holding the k-mers of half the reads, and the other half
+    fresh; Ns, ragged lengths and two reads shorter than k. Returns
+    (JAX params, JAX table, reads, lengths, last_j)."""
+    reads, lengths = reads_with_ns(seed, B, L, k, n_rate=0.01,
+                                   err_rate=0.01)
+    reads, lengths = with_short_reads(reads, lengths, k)
+    jp = jbloom.BloomParams(k=k, log2_width=LW, num_hashes=4)
+    words, valid = j_extract(jnp.asarray(reads[:B // 2]), k)
+    table = jbloom.insert(jp, jnp.zeros(jp.width, jnp.int32),
+                          j_canonical(words, k)[0], valid)
+    table = jbloom.insert(jp, table, j_canonical(words, k)[0], valid)
+    return jp, table, reads, lengths, (lengths - k).astype(np.int32)
+
+
+def j_window_solid(jp, table, reads, last_j, t_solid):
+    """The JAX package's round-start solidity, `_window_counts(...)[0]`,
+    with the Pallas probe in interpret mode."""
+    solid, _ = j_window_counts(
+        jnp.asarray(reads), jnp.asarray(last_j), jp.k,
+        lambda cw, v: query_solid_pallas(jp, table, t_solid, cw, v,
+                                         interpret=True))
+    return np.asarray(solid)
+
+
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_k2_plain_matches_jax_window_counts(k):
+    jp, table, reads, lengths, last_j = k2_case(k, 70 + k)
+    want = j_window_solid(jp, table, reads, last_j, 2)
+    p = bloom.BloomParams(k, 15, 4)
+    got = bloom_query_solid_plain(t(table), t(reads), t(last_j), p, 2)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    np.testing.assert_array_equal(n(got), want)
+    assert 0 < want.sum() < (last_j + 1).clip(0).sum()
+    assert not want[1:3].any()                   # reads shorter than k
+
+
 def test_cpu_wrappers_take_plain_path_and_count_no_launch():
     cuda.reset_launches()
-    reads, _ = reads_with_ns(7, 8, 100, 31)
+    reads, lengths = reads_with_ns(7, 8, 100, 31)
     canon, valid = _canon(31, seed=7, B=8)
     p = bloom.BloomParams(31, 12, 4)
     table = bloom.make_table(p, "cpu")
     n_valid = bloom_insert(table, t(reads).to(torch.int8), p)
     assert int(n_valid) == valid.sum()
-    block, lp = blocks_lanepack(p, t(canon))
-    v = t(valid).reshape(-1)
-    solid = bloom_query_solid(table, block.reshape(-1), lp.reshape(-1), v,
-                              4, 1)
-    assert bool(solid[v].all()) and not bool(solid[~v].any())
+    last_j = t(lengths - 31)
+    solid = bloom_query_solid(table, t(reads), last_j, p, 1)
+    existing = torch.arange(70)[None, :] <= last_j[:, None]
+    assert torch.equal(solid, t(valid) & existing)
+    assert torch.equal(solid, bloom_query_solid_plain(table, t(reads),
+                                                      last_j, p, 1))
     assert all(c == 0 for c in cuda.LAUNCHES.values())
 
 
-def test_wrapper_rejects_bad_arguments():
-    """K2's wrapper; K1's is test_torch_bloom_insert.py's."""
+def _k2_args():
     p = bloom.BloomParams(31, 12, 4)
-    table = bloom.make_table(p, "cpu")
-    block = torch.zeros(4, dtype=torch.int64)
-    lp = torch.zeros(4, dtype=torch.int32)
-    valid = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(TypeError):
-        bloom_query_solid(table, block, lp, valid, 4, 1)
-    with pytest.raises(ValueError):
-        bloom_query_solid(table, block.to(torch.int32), lp[:3], valid, 4, 1)
+    return dict(table=bloom.make_table(p, "cpu"),
+                bases=torch.zeros((4, 40), dtype=torch.int32),
+                last_j=torch.full((4,), 9, dtype=torch.int32), params=p,
+                t=1)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (dict(table=torch.zeros(1 << 12, dtype=torch.int64)), TypeError),
+    (dict(table=torch.zeros(1 << 13, dtype=torch.int32)), ValueError),
+    (dict(bases=torch.zeros((4, 40), dtype=torch.int8)), TypeError),
+    (dict(bases=torch.zeros(160, dtype=torch.int32)), ValueError),
+    (dict(bases=torch.zeros((4, 30), dtype=torch.int32)), ValueError),
+    (dict(bases=torch.zeros((40, 4), dtype=torch.int32).t()), ValueError),
+    (dict(last_j=torch.zeros(4, dtype=torch.int64)), TypeError),
+    (dict(last_j=torch.zeros(3, dtype=torch.int32)), ValueError),
+])
+def test_wrapper_rejects_bad_arguments(bad, err):
+    """K2's wrapper; K1's is test_torch_bloom_insert.py's."""
+    args = _k2_args()
+    bloom_query_solid(**args)            # the good arguments pass
+    args.update(bad)
+    with pytest.raises(err):
+        bloom_query_solid(**args)
 
 
 def test_np_merge_counted_and_threshold():
