@@ -12,8 +12,9 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      versions; builds the CUDA kernels from kmerax_torch/csrc.
   2. each kernel (K1 bloom_insert and K2 bloom_query_solid at k = 25, 31,
      63 on a config-1 read batch, K3 correct_eval_scores at k = 25, 31,
-     63, K4 banded_align_scores at band 15 and 63 in each of its
-     lanes-per-read layouts, each timed) against its plain
+     63, K1-K3 under the hash and again under the minimizer bucket scheme
+     (m = 11, 256 buckets), K4 banded_align_scores at band 15 and 63 in
+     each of its lanes-per-read layouts, each timed) against its plain
      PyTorch version on the card at its path's shapes: exact integer
      equality (tolerance 0, all outputs are integers). Each kernel's
      device time per launch over 50 back-to-back launches, its host time
@@ -22,9 +23,11 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      rate, counted from this run's inputs), the sector floor of its
      counter rows, and one PyTorch call's time where one computes the
      same function (K1: index_add_ at its lanes).
-  3. a small golden: the port's pipeline on the card must write corrected
-     FASTQ and unitig FASTA bytes equal to the oracle's, and the `align`
-     subcommand a TSV whose every row equals oracle.align.validate_read.
+  3. small goldens: the port's pipeline on the card, under the hash and
+     the minimizer bucket scheme, `correct --use-exact`, and `pipeline --k2
+     63` must write corrected FASTQ and unitig FASTA bytes equal to the
+     oracle's, and the `align` subcommand a TSV whose every row equals
+     oracle.align.validate_read.
   4. BASELINE config 1 at full scale (E. coli K-12 size genome, PE150,
      50x, error rate 0.01, k=31; 2^29-counter Bloom table) through the CLI
      entry point, with launch counts of every kernel, stage rates and
@@ -35,9 +38,14 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      correct round, and K2 and K3 against their plain versions on the
      main path's own first calls (K3 also at its entry count).
   5. BASELINE config 3 (human chr21 PE150 30x, error rate 0.005, k=31,
-     correct + assemble) on a 6.0 Mb genome, through `pipeline --validate`
+     correct + assemble) on a 3.0 Mb genome, through `pipeline --validate`
      and then the `align` subcommand, with stage walls, launch counts,
      correction accuracy and the validate stats held to their bars.
+  6. BASELINE config 5 (human WGS 30x PE150, two-pass k=31 -> k2=63,
+     correct + assemble, error 0.005) on a 2.0 Mb genome: `pipeline --k2
+     63` held to config 3's bars, a crash after the count_k2 checkpoint
+     and its resume, byte-equal, then `correct --spectrum` and `assemble
+     --spectrum` on the checkpoints, byte-equal, and `correct --use-exact`.
 
 Every failure raises. The last line is {"ok": true, "device": {...}}.
 Exits nonzero without printing a result where CUDA is absent.
@@ -69,15 +77,31 @@ C1_COVERAGE = 50
 C1_ERROR = 0.01
 C1_CFG = dict(k=31, bloom_log2_width=29, exact_capacity=1 << 27,
               batch_reads=4096, max_read_len=160)
-# BASELINE config 3 (acceptance.py CONFIGS[3]) at the size of
-# ACCEPTANCE_full_c3.json: a 6,000,000 bp genome (chr21 is 46,709,983 bp;
-# the cut keeps the smoke inside its time limit), PE150, 30x, error 0.005,
-# k=31, 1,200,000 reads. acceptance.py's rule: distinct = G + n*150*0.005*31
-# = 33,900,000, so exact_capacity 2^26 and a 2^28-counter Bloom table.
-C3_GENOME = 6_000_000
+# config 1's peak device memory since the count step became one K1 launch
+C1_PEAK_BYTES = 4_833_182_208
+# BASELINE config 3 (acceptance.py CONFIGS[3]) on a 3,000,000 bp genome
+# (chr21 is 46,709,983 bp; the CPU record ACCEPTANCE_full_c3.json has
+# 6,000,000, at which the six phases took 1,206.4 s on an H100 80GB HBM3
+# at 700 W, this phase ~410 s of it: half the genome keeps the script
+# inside 20 minutes), PE150, 30x, error 0.005, k=31, 600,000 reads.
+# acceptance.py's rule: distinct = G + n*150*0.005*31 = 16,950,000, so
+# exact_capacity 2^25 and a 2^27-counter Bloom table.
+C3_GENOME = 3_000_000
+C3_FULL_GENOME = 46_709_983
 C3_COVERAGE = 30
 C3_ERROR = 0.005
-C3_CFG = dict(k=31, bloom_log2_width=28, exact_capacity=1 << 26,
+C3_CFG = dict(k=31, bloom_log2_width=27, exact_capacity=1 << 25,
+              batch_reads=4096, max_read_len=160)
+# BASELINE config 5 (acceptance.py CONFIGS[5]: human WGS 30x PE150, k=31 ->
+# k2=63 two-pass correct + assemble, error 0.005) at the size of
+# ACCEPTANCE_full_c5.json: a 2,000,000 bp genome (the cut; the human
+# genome is 3.1 Gb), 30x, 400,000 reads. acceptance.py's rule: distinct =
+# G + n*150*0.005*31 = 11,300,000, so exact_capacity 2^25 and a
+# 2^27-counter Bloom table, for both passes.
+C5_GENOME = 2_000_000
+C5_COVERAGE = 30
+C5_ERROR = 0.005
+C5_CFG = dict(k=31, bloom_log2_width=27, exact_capacity=1 << 25,
               batch_reads=4096, max_read_len=160)
 
 
@@ -91,6 +115,7 @@ def _cli_args(cfg: dict) -> list:
 
 C1_ARGS = _cli_args(C1_CFG)
 C3_ARGS = _cli_args(C3_CFG)
+C5_ARGS = _cli_args(C5_CFG)
 SEED = 42
 READ_LEN = 150
 # the kernels of count -> correct -> assemble (phase 4); K4 runs only on
@@ -186,6 +211,83 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9     # 132 SMs x 64 INT32 lanes x 1.98 GHz
 SECTOR = 32                             # bytes of one DRAM sector
 # phase 2's batch (reads x length) and table (log2 counters): config 1's
 K_READS, K_LEN, K_LOG2_WIDTH = 4096, 160, 29
+# the minimizer bucket scheme's settings (KmeraxConfig defaults): m = 11,
+# 256 buckets
+MINIMIZER_M, LOG2_BUCKETS = 11, 8
+
+
+def _params(k, scheme="hash", log2_width=None):
+    """Phase 2's Bloom parameters: d = 4, 2^K_LOG2_WIDTH counters."""
+    from kmerax_torch.spectrum.bloom import BloomParams
+
+    return BloomParams(k, log2_width or K_LOG2_WIDTH, 4, MINIMIZER_M,
+                       LOG2_BUCKETS, scheme)
+
+
+def _covered(kmers, span):
+    """(R, nk + span - 1) bool: the m-mers of each row that lie in at least
+    one of the k-mers `kmers` marks ((R, nk) bool, a row's k-mers in order,
+    `span` = k - m + 1 m-mers a k-mer)."""
+    import torch
+
+    nk = kmers.shape[1]
+    c = torch.nn.functional.pad(kmers.to(torch.int32).cumsum(1), (1, 0))
+    j = torch.arange(nk + span - 1, device=kmers.device)
+    return (c[:, (j + 1).clamp(max=nk)]
+            - c[:, (j - span + 1).clamp(min=0)]) > 0
+
+
+def _mmers(p, valid, fwd):
+    """(m-mer, strand) pairs whose mix32 the minimizers of the k-mers
+    `valid` marks need ((R, nk) bool, `fwd` their canonical strand): each
+    m-mer in a k-mer whose canonical form reads it on that strand, counted
+    once however many k-mers share it; 0 under the hash scheme."""
+    if p.bucket_scheme != "minimizer":
+        return 0
+    span = p.k - p.minimizer_m + 1
+    return sum(int(_covered(valid & s, span).sum()) for s in (fwd, ~fwd))
+
+
+def _k3_mmers(pk, live, fwd, args):
+    """(m-mer, strand) pairs whose mix32 one K3 call needs (0 under the
+    hash scheme). `live` and `fwd` are (Q, 4, k): the probed windows of each
+    entry's center variants and their canonical strands. The m-mers of the
+    round-start reads count once per read position and strand, however many
+    entries' windows hold them; the m-mers over an entry's center count
+    again for each variant other than the read's base, once per distinct
+    (read, position)."""
+    import torch
+
+    if pk.bucket_scheme != "minimizer":
+        return 0
+    bases, _, _, ent_r, ent_i = args
+    k, m = pk.k, pk.minimizer_m
+    B, L = bases.shape
+    Q, dev = live.shape[0], live.device
+    keep = ent_i >= 0
+    r, ic = ent_r.long(), ent_i.long().clamp(0, L - 1)
+    is_cur = (torch.arange(4, device=dev)[None, :]
+              == (bases[r, ic].long() & 3)[:, None])[:, :, None]
+    center = torch.zeros(2 * k - m, dtype=torch.bool, device=dev)
+    center[k - m:k] = True
+    flat = (r * L + ic - (k - 1))[:, None] + torch.arange(2 * k - m,
+                                                          device=dev)
+    idx = torch.nonzero(keep).squeeze(1)
+    if idx.numel() == 0:
+        return 0
+    _, inv = torch.unique(r[idx] * L + ic[idx], return_inverse=True)
+    rep = torch.empty(int(inv.max()) + 1, dtype=torch.long,
+                      device=dev).scatter_(0, inv, idx)
+    total = 0
+    for s in (fwd, ~fwd):
+        cov = _covered((live & s & keep[:, None, None]).reshape(-1, k),
+                       k - m + 1).reshape(Q, 4, -1)
+        in_read = torch.where(center, (cov & is_cur).any(1), cov.any(1))
+        seen = torch.zeros(B * L, dtype=torch.bool, device=dev)
+        seen[flat[in_read]] = True
+        sub = (cov & ~is_cur)[:, :, center].sum(dim=(1, 2))
+        total += int(seen.sum()) + int(sub[rep].sum())
+    return total
 
 
 def _bound(nbytes, ops):
@@ -197,13 +299,22 @@ def _bound(nbytes, ops):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def _kmer_ops(W, n_windows, n_kmers, lanes):
+def _kmer_ops(W, n_windows, n_kmers, lanes, mmers=0):
     """int32 operations to address k-mers from packed words: per window the
     W word extraction and the validity test (4W + 4); per valid k-mer the
     canonical form (25W: reverse-complement 19, alignment 3, compare 2,
     select 1 per word) and two murmur3 hashes (2 x (9W + 8)); per counter
-    lane its address (3) and its compare or atomic add (1)."""
-    return n_windows * (4 * W + 4) + n_kmers * (43 * W + 16) + 4 * lanes
+    lane its address (3) and its compare or atomic add (1). Under the
+    minimizer scheme, the least the minimizers need: `mmers` (m-mer,
+    strand) pairs (`_mmers`, `_k3_mmers`: each m-mer once however many
+    k-mers share it), each rolled in from its neighbour (3), mixed by mix32
+    (8) and entered into a prefix and a suffix minimum (2), so that a
+    k-mer's minimizer is one min of two (van Herk / Gil-Werman); then per
+    k-mer that min (1) and the bucket and block (4)."""
+    ops = n_windows * (4 * W + 4) + n_kmers * (43 * W + 16) + 4 * lanes
+    if mmers:
+        ops += 13 * mmers + 5 * n_kmers
+    return ops
 
 
 def _probe_traffic(table, block, lanepack, valid, d, t=None):
@@ -286,10 +397,11 @@ def _timed(fn, plain, kernel: str, plain_calls: int = 10) -> dict:
 
 
 def _record(name, source, replaces, err, times, nbytes, ops, floor_bytes,
-            library_ms):
+            library_ms, scheme="hash"):
     bound, by = _bound(nbytes, ops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, **times, bound_ms=bound, bound_by=by,
+                scheme=scheme, max_abs_err=err, **times, bound_ms=bound,
+                bound_by=by,
                 sector_floor_ms=None if floor_bytes is None
                 else floor_bytes / HBM_BYTES_PER_S * 1e3,
                 library_ms=library_ms)
@@ -308,33 +420,46 @@ def _say_times(tag: str, r: dict) -> None:
 
 
 def phase_kernels(device=DEVICE):
-    """Kernel == plain version at main-path shapes. Returns the kernel
-    records of the final JSON line (without launch counts)."""
+    """Kernel == plain version at main-path shapes; K1-K3 under the hash
+    and then the minimizer bucket scheme. Returns the kernel records of the
+    final JSON line (without launch counts): K1-K4 under the hash scheme,
+    then K1-K3 under the minimizer scheme."""
     import numpy as np
     import torch
-    from kmerax_torch.spectrum.bloom import BloomParams, make_table
+    from kmerax_torch.spectrum.bloom import make_table
 
     rng = np.random.default_rng(SEED)
-    recs = [_check_k1(rng, device)]
-    tk = make_table(BloomParams(31, K_LOG2_WIDTH, 4), device)
-    recs.append(_check_k2(rng, tk, device))
-    recs.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device))
-    del tk
-    torch.cuda.empty_cache()
-    recs.append(_check_k4(rng, device))
-    return recs
+    recs, mz = [], []
+    for scheme, out in (("hash", recs), ("minimizer", mz)):
+        out.append(_check_k1(rng, device, scheme))
+        tk = make_table(_params(31), device)
+        out.append(_check_k2(rng, tk, device, scheme=scheme))
+        out.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device,
+                             scheme=scheme))
+        del tk
+        torch.cuda.empty_cache()
+        if scheme == "hash":
+            recs.append(_check_k4(rng, device))
+    for h, m in zip(recs, mz):
+        num(f"phase2 {h['name']} at k=31, hash / minimizer scheme: kernel "
+            f"{h['kernel_ms']} / {m['kernel_ms']} ms (profiler), "
+            f"{h['ms']:.4f} / {m['ms']:.4f} ms back to back, bound "
+            f"{h['bound_ms']:.4f} ({h['bound_by']}) / {m['bound_ms']:.4f} "
+            f"({m['bound_by']}) ms")
+    return recs + mz
 
 
-def _check_k1(rng, device):
+def _check_k1(rng, device, scheme="hash"):
     """K1 == its plain version on one config-1 batch (4096 x 160 int8 into
-    2^29 counters) at k = 25, 31 and 63: table bytes, the pending rows
-    written from a nonzero row offset, and the valid count. Returns the
-    kernel record at k=31, timed as the count step calls it."""
+    2^29 counters) at k = 25, 31 and 63 under the bucket `scheme`: table
+    bytes, the pending rows written from a nonzero row offset, and the
+    valid count. Returns the kernel record at k=31, timed as the count step
+    calls it."""
     import numpy as np
     import torch
     from kmerax_torch.core.codec import canonical_words, num_words
     from kmerax_torch.core.kmers import extract_kmers
-    from kmerax_torch.spectrum.bloom import BloomParams, make_table
+    from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
         bloom_insert, bloom_insert_plain
     from kmerax_torch.spectrum.exact import sentinel_rows
@@ -342,7 +467,7 @@ def _check_k1(rng, device):
     B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
     rec, err_max = None, 0
     for k in (25, 31, 63):
-        p = BloomParams(k, LW, d)
+        p = _params(k, scheme)
         reads, _ = _reads(rng, B, L, k)
         bases = torch.as_tensor(reads.astype(np.int8), device=device)
         W, rows = num_words(k), B * (L - k + 1)
@@ -359,8 +484,8 @@ def _check_k1(rng, device):
                   abs(int(nk) - int(np_)))
         if not (torch.equal(tk, tp) and torch.equal(pk, pp)
                 and int(nk) == int(np_)):
-            raise AssertionError(f"K1 differs from plain at k={k} (max "
-                                 f"{err})")
+            raise AssertionError(f"K1 differs from plain at k={k}, "
+                                 f"{scheme} scheme (max {err})")
         if not 0 < int(nk) < rows:
             raise AssertionError(f"K1 test is degenerate at k={k}")
         err_max = max(err_max, err)
@@ -368,7 +493,10 @@ def _check_k1(rng, device):
         # the counters and sectors these k-mers touch, and the one PyTorch
         # call that adds the same ones at precomputed flat lane indices
         words, valid = extract_kmers(bases, k)
-        blk, lp = blocks_lanepack(p, canonical_words(words, k)[0])
+        canon, fwd = canonical_words(words, k)
+        mmers = _mmers(p, valid, fwd)
+        blk, lp = blocks_lanepack(p, canon)
+        del canon, fwd
         blk, lp, valid = blk.reshape(-1), lp.reshape(-1), valid.reshape(-1)
         lanes, sectors = _probe_traffic(tk, blk, lp, valid, d)
         idx = (blk.long()[:, None] * 128 + torch.stack(
@@ -384,13 +512,14 @@ def _check_k1(rng, device):
         r = _record("bloom_insert", "kmerax_torch/csrc/bloom.cu",
                     "kmerax/spectrum/pallas_bloom.py:42", err, times,
                     io_bytes + 8 * lanes,
-                    _kmer_ops(W, rows, int(nk), lanes),
-                    io_bytes + 2 * SECTOR * sectors, lib)
-        _say_times(f"phase2 K1 bloom_insert == plain at k={k}: {B} x {L} "
+                    _kmer_ops(W, rows, int(nk), lanes, mmers),
+                    io_bytes + 2 * SECTOR * sectors, lib, scheme)
+        _say_times(f"phase2 K1 bloom_insert == plain at k={k}, {scheme} "
+                   f"scheme: {B} x {L} "
                    f"int8 batch into 2^{LW} counters, table bytes, {rows} "
                    f"pending rows from row {rows} and valid count "
                    f"{int(nk)} equal; {lanes} counter lanes in {sectors} "
-                   f"sectors", r)
+                   f"sectors; {mmers} (m-mer, strand) pairs mixed", r)
         if k == 31:
             rec = r
         del tk, pk
@@ -400,18 +529,18 @@ def _check_k1(rng, device):
 
 
 def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
-              phase="phase2"):
+              phase="phase2", scheme="hash"):
     """K2 == bloom_query_solid_plain at k in ks on a 4096 x 160 int32 batch
     (Ns, ragged lengths, 2 % of the reads shorter than k, so last_j < 0)
     whose first half `_fill3` inserted three times into the table `tk` and
     whose second half is fresh, at t=3; and first, when `real` holds the
-    arguments of a K2 call on the main path, on those. Exact. Returns the
-    record of that call, else of k=31."""
+    arguments of a K2 call on the main path, on those; addressed under the
+    bucket `scheme`. Exact. Returns the record of that call, else of
+    k=31."""
     import numpy as np
     import torch
     from kmerax_torch.core.codec import canonical_words
     from kmerax_torch.core.kmers import extract_kmers
-    from kmerax_torch.spectrum.bloom import BloomParams
     from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
         bloom_query_solid, bloom_query_solid_plain
 
@@ -422,7 +551,7 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
             pk, t_real, (bases, last_j) = real
             yield f"k={pk.k}, main-path call", pk, t_real, bases, last_j
         for k in ks:
-            pk = BloomParams(k, LW, d)
+            pk = _params(k, scheme, LW)
             seen, slen = _reads(rng, B, L, k)
             _fill3(tk, pk, seen)
             fresh, flen = _reads(rng, B, L, k)
@@ -432,7 +561,8 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
             lengths[short] = rng.integers(0, k, short.size)
             for i in short:
                 reads[i, lengths[i]:] = 4
-            yield (f"k={k}", pk, 3, torch.as_tensor(reads, device=device),
+            yield (f"k={k}, {scheme} scheme", pk, 3,
+                   torch.as_tensor(reads, device=device),
                    torch.as_tensor(lengths - k, device=device))
 
     rec, err_max = None, 0
@@ -453,11 +583,13 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
             raise AssertionError(f"K2 test is degenerate at {tag}: "
                                  f"{n_solid} of {n_win} solid")
         words, valid = extract_kmers(bases, k)
-        blk, lp = blocks_lanepack(pk, canonical_words(words, k)[0])
+        canon, fwd = canonical_words(words, k)
+        blk, lp = blocks_lanepack(pk, canon)
+        mmers = _mmers(pk, valid & existing, fwd)
         live = (valid & existing).reshape(-1)
         lanes, sectors = _probe_traffic(tk, blk.reshape(-1), lp.reshape(-1),
                                         live, d, t)
-        del words, valid, blk, lp
+        del words, valid, canon, fwd, blk, lp
         times = _timed(lambda: bloom_query_solid(tk, bases, last_j, pk, t),
                        lambda: bloom_query_solid_plain(tk, bases, last_j, pk,
                                                        t),
@@ -466,12 +598,13 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
         r = _record("bloom_query_solid", "kmerax_torch/csrc/bloom.cu",
                     "kmerax/spectrum/pallas_bloom.py:190", err, times,
                     io_bytes + 4 * lanes,
-                    _kmer_ops(W, B * nk, int(live.sum()), lanes),
-                    io_bytes + SECTOR * sectors, None)
+                    _kmer_ops(W, B * nk, int(live.sum()), lanes, mmers),
+                    io_bytes + SECTOR * sectors, None, pk.bucket_scheme)
         _say_times(f"{phase} K2 bloom_query_solid == plain at {tag}: "
                    f"{B} x {L} int32 batch, {n_win} windows in [0, last_j], "
                    f"{int(live.sum())} valid, {n_solid} solid at t={t}; "
-                   f"{lanes} counter lanes read in {sectors} sectors", r)
+                   f"{lanes} counter lanes read in {sectors} sectors; "
+                   f"{mmers} (m-mer, strand) pairs mixed", r)
         err_max = max(err_max, err)
         if rec is None or (k == 31 and real is None):
             rec = r
@@ -480,13 +613,19 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
 
 
 def _k3_traffic(pk, table, t, args):
-    """(probed k-mers, counters read, distinct sectors) of one K3 call:
-    every window its plain version probes, each read up to its first lane
-    below t."""
-    from kmerax_torch.ops.correct import _eval_scores
+    """(probed k-mers, counters read, distinct sectors, (m-mer, strand)
+    pairs of the minimizers) of one K3 call: every window its plain version
+    probes, each read up to its first lane below t."""
+    from kmerax_torch.ops import correct
     from kmerax_torch.spectrum.bloom import blocks_lanepack
 
-    tot = [0, 0, 0]
+    tot = [0, 0, 0, 0]
+    canonical_words, strands = correct.canonical_words, []
+
+    def canonical_fwd(words, k):          # keeps the probed k-mers' strands
+        canon, fwd = canonical_words(words, k)
+        strands.append(fwd)
+        return canon, fwd
 
     def solid_fn(cw, v):
         block, lp = blocks_lanepack(pk, cw)
@@ -496,24 +635,28 @@ def _k3_traffic(pk, table, t, args):
         tot[0] += int(vf.sum())
         tot[1] += lanes
         tot[2] += sectors
+        tot[3] += _k3_mmers(pk, v, strands[-1], args)
         return v        # the scores are not used
-    _eval_scores(*args, pk.k, solid_fn)
+    correct.canonical_words = canonical_fwd
+    try:
+        correct._eval_scores(*args, pk.k, solid_fn)
+    finally:
+        correct.canonical_words = canonical_words
     return tot
 
 
 def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
-              phase="phase2"):
+              phase="phase2", scheme="hash"):
     """K3 == eval_scores_plain at k in ks on Q entries over a 4096 x 160
     batch whose k-mers `fill` inserted three times into the table `tk`:
     negative window starts (positions < k-1), padding entries (-1) and
     reads with N; and first, when `real` holds the arguments of a K3 call
-    on the main path, on those. Returns the record of that call, else of
-    k=31."""
+    on the main path, on those; addressed under the bucket `scheme`.
+    Returns the record of that call, else of k=31."""
     import numpy as np
     import torch
     from kmerax_torch.ops.correct_kernels import correct_eval_scores, \
         eval_scores_plain
-    from kmerax_torch.spectrum.bloom import BloomParams
 
     B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
 
@@ -523,7 +666,7 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
             yield (f"k={pk.k}, main-path call of {args[3].numel()} "
                    f"entries", pk, t_real, args)
         for k in ks:
-            pk = BloomParams(k, LW, d)
+            pk = _params(k, scheme, LW)
             reads, lengths = _reads(rng, B, L, k)
             fill(tk, pk, reads)
             bases = torch.as_tensor(reads, device=device)
@@ -534,7 +677,7 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
             ent_i[:Q // 16] = -1
             ent_i[Q // 16:Q // 8] = rng.integers(0, k - 1, Q // 16)
             ent_i = torch.as_tensor(ent_i, device=device)
-            yield (f"k={k}, {Q} entries", pk, 3,
+            yield (f"k={k}, {scheme} scheme, {Q} entries", pk, 3,
                    (bases, lens, lens - k, ent_r, ent_i))
 
     rec = None
@@ -552,7 +695,7 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
             raise AssertionError(f"K3 test is degenerate at {tag}")
         Qc = args[3].numel()
         W = (k + 15) // 16
-        n_kmers, lanes, sectors = _k3_traffic(pk, tk, t, args)
+        n_kmers, lanes, sectors, mmers = _k3_traffic(pk, tk, t, args)
         base_bytes = 4 * min(Qc * (2 * k - 1), args[0].numel())
         io_bytes = 8 * Qc + 8 * Qc + base_bytes + 16 * Qc
         times = _timed(lambda: correct_eval_scores(pk, tk, t, *args),
@@ -561,12 +704,13 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
         r = _record("correct_eval_scores", "kmerax_torch/csrc/correct.cu",
                     "kmerax/ops/pallas_correct.py:74", err, times,
                     io_bytes + 4 * lanes,
-                    _kmer_ops(W, n_kmers, n_kmers, lanes),
-                    io_bytes + SECTOR * sectors, None)
+                    _kmer_ops(W, n_kmers, n_kmers, lanes, mmers),
+                    io_bytes + SECTOR * sectors, None, pk.bucket_scheme)
         _say_times(f"{phase} K3 correct_eval_scores == plain at {tag}: "
                    f"score "
                    f"sum {int(sk.sum())}, {n_kmers} k-mers probed, {lanes} "
-                   f"counter lanes read in {sectors} sectors", r)
+                   f"counter lanes read in {sectors} sectors; {mmers} "
+                   f"(m-mer, strand) pairs mixed", r)
         err_max = max(err_max, err)
         # the main-path call's record where there is one, else k=31's
         if rec is None or (k == 31 and real is None):
@@ -674,56 +818,145 @@ def _check_k4(rng, device):
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_golden(workdir: str, device=DEVICE):
-    """tests/golden/test_pipeline.py's dataset and config through the
-    port's run_pipeline; FASTQ and FASTA bytes equal to the oracle's."""
-    import oracle
+def _golden_reads(workdir: str, name: str, seed: int, coverage: int):
+    """A golden dataset of tests/golden (ecoli_like, 1,500 bp, reads of
+    100, error 0.008) written as FASTQ. Returns (path, reads)."""
     from sim import ecoli_like, make_fastq
-    from kmerax_torch.config import KmeraxConfig
-    from kmerax_torch.pipeline.run import run_pipeline
 
-    cfg = KmeraxConfig(k=31, bloom_log2_width=18, bloom_hashes=4,
-                       batch_reads=128, max_read_len=100,
-                       exact_capacity=1 << 17)
-    _, reads = ecoli_like(seed=55, genome_len=1500, coverage=30,
+    _, reads = ecoli_like(seed=seed, genome_len=1500, coverage=coverage,
                           read_len=100, error_rate=0.008)
-    path = os.path.join(workdir, "golden.fastq")
+    path = os.path.join(workdir, f"{name}.fastq")
     with open(path, "wb") as f:
         f.write(make_fastq(reads))
-    out_fq = os.path.join(workdir, "golden.corrected.fastq")
-    out_fa = os.path.join(workdir, "golden.fasta")
-    res = run_pipeline(cfg, [path], out_fq, out_fa, device=device)
+    return path, reads
 
-    k = cfg.k
-    sp = oracle.ExactSpectrum(k)
-    sp.add_reads([r.bases for r in reads])
-    t = oracle.auto_threshold(oracle.histogram_of(sp.sorted_items()[1]))
-    if res["threshold"] != t:
-        raise AssertionError(f"threshold {res['threshold']} != oracle {t}")
-    obl = oracle.CountingBloomOracle(k, log2_width=cfg.bloom_log2_width,
-                                     num_hashes=cfg.bloom_hashes)
-    obl.add_reads([r.bases for r in reads])
+
+def _oracle_correct(reads, k: int, t: int, query, out_fq: str, what: str):
+    """oracle.correct_read of every read with `query`; raises unless the
+    FASTQ at out_fq holds exactly those reads. Returns the fixed reads."""
+    import oracle
+
     buf = io.BytesIO()
     fixed_all = []
     for r in reads:
-        fixed = oracle.correct_read(r.bases, k, t, obl.query)
+        fixed = oracle.correct_read(r.bases, k, t, query)
         fixed_all.append(fixed)
         buf.write(f"@{r.name}\n{oracle.bases_to_seq(fixed)}\n+\n{r.qual}\n"
                   .encode())
     with open(out_fq, "rb") as f:
         if f.read() != buf.getvalue():
-            raise AssertionError("golden FASTQ differs from the oracle's")
+            raise AssertionError(f"{what} FASTQ differs from the oracle's")
+    return fixed_all
+
+
+def _oracle_assembly(fixed_all, k: int, out_fa: str, what: str) -> bytes:
+    """The oracle's unitig FASTA of the corrected reads at k, with its auto
+    threshold; raises unless the FASTA at out_fa is byte-equal."""
+    import oracle
+
     csp = oracle.ExactSpectrum(k)
     csp.add_reads(fixed_all)
     ct = oracle.auto_threshold(oracle.histogram_of(csp.sorted_items()[1]))
     want = oracle.assemble_fasta(csp, ct, k).encode()
     with open(out_fa, "rb") as f:
         if f.read() != want:
-            raise AssertionError("golden FASTA differs from the oracle's")
-    say(f"phase3 golden: {len(reads)} reads, threshold {t}, "
-        f"{res['edited_reads']} edited, {res['unitigs']} unitig(s); "
-        f"FASTQ and FASTA bytes equal to the oracle's")
+            raise AssertionError(f"{what} FASTA differs from the oracle's")
+    return want
 
+
+def _oracle_threshold(reads, k: int) -> tuple:
+    """(the oracle's exact spectrum of the reads at k, its auto
+    threshold)."""
+    import oracle
+
+    sp = oracle.ExactSpectrum(k)
+    sp.add_reads([r.bases for r in reads])
+    return sp, oracle.auto_threshold(oracle.histogram_of(
+        sp.sorted_items()[1]))
+
+
+def phase_golden(workdir: str, device=DEVICE):
+    """tests/golden/test_pipeline.py's dataset and config through the
+    port's run_pipeline under the hash and the minimizer bucket scheme, and
+    through `correct --use-exact`; tests/golden/test_twopass.py's through
+    `pipeline --k2 63`; FASTQ and FASTA bytes equal to the oracle's. Then
+    the `align` subcommand's TSV against the oracle's rows. Returns the
+    minimizer run's launches."""
+    import oracle
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.pipeline.run import run_pipeline
+    from kmerax_torch.utils import cuda
+
+    cfg = KmeraxConfig(k=31, bloom_log2_width=18, bloom_hashes=4,
+                       batch_reads=128, max_read_len=100,
+                       exact_capacity=1 << 17)
+    path, reads = _golden_reads(workdir, "golden", 55, 30)
+    k = cfg.k
+    sp, t = _oracle_threshold(reads, k)
+    launches = {}
+    for scheme in ("hash", "minimizer"):
+        out_fq = os.path.join(workdir, f"golden.{scheme}.fastq")
+        out_fa = os.path.join(workdir, f"golden.{scheme}.fasta")
+        cuda.reset_launches()
+        res = run_pipeline(cfg.replace(bucket_scheme=scheme), [path], out_fq,
+                           out_fa, device=device)
+        launches[scheme] = dict(cuda.LAUNCHES)
+        if res["threshold"] != t:
+            raise AssertionError(f"threshold {res['threshold']} != oracle "
+                                 f"{t}")
+        obl = oracle.CountingBloomOracle(
+            k, log2_width=cfg.bloom_log2_width, num_hashes=cfg.bloom_hashes,
+            minimizer_m=MINIMIZER_M, log2_buckets=LOG2_BUCKETS,
+            bucket_scheme=scheme)
+        obl.add_reads([r.bases for r in reads])
+        fixed = _oracle_correct(reads, k, t, obl.query, out_fq,
+                                f"golden ({scheme} scheme)")
+        want = _oracle_assembly(fixed, k, out_fa,
+                                f"golden ({scheme} scheme)")
+        say(f"phase3 golden, {scheme} scheme: {len(reads)} reads, threshold "
+            f"{t}, {res['edited_reads']} edited, {res['unitigs']} "
+            f"unitig(s); FASTQ and FASTA bytes equal to the oracle's; "
+            f"launches {launches[scheme]}")
+        if scheme == "hash":
+            out_fq_hash, out_fa_hash, fixed_all = out_fq, out_fa, fixed
+            want_hash = want
+    for name in MAIN_PATH_KERNELS:
+        if launches["minimizer"][name] <= 0:
+            raise AssertionError(f"{name} never launched under the "
+                                 f"minimizer scheme")
+
+    # correct --use-exact: solidity from the exact spectrum
+    out_x = os.path.join(workdir, "golden.exact.fastq")
+    stats, _ = _cli("phase3", workdir, [
+        "correct", "--in", path, "--out", out_x, "--use-exact", "-k", "31",
+        "--bloom-log2-width", "18", "--batch-reads", "128",
+        "--max-read-len", "100", "--exact-capacity", str(1 << 17),
+        "--device", device])
+    _oracle_correct(reads, k, t, sp.query, out_x, "golden --use-exact")
+    say(f"phase3 golden correct --use-exact: {stats}; FASTQ bytes equal to "
+        f"oracle.correct_read with the ExactSpectrum query")
+
+    # pipeline --k2 63 on tests/golden/test_twopass.py's dataset
+    tp_path, tp_reads = _golden_reads(workdir, "twopass_reads", 101, 35)
+    tp_fq = os.path.join(workdir, "twopass.fastq")
+    tp_fa = os.path.join(workdir, "twopass.fasta")
+    res, _ = _cli("phase3", workdir, [
+        "pipeline", "--in", tp_path, "--out-fastq", tp_fq, "--out-fasta",
+        tp_fa, "--k2", "63", "-k", "31", "--bloom-log2-width", "17",
+        "--batch-reads", "128", "--max-read-len", "100", "--exact-capacity",
+        str(1 << 17), "--device", device])
+    _, t1 = _oracle_threshold(tp_reads, 31)
+    obl = oracle.CountingBloomOracle(31, log2_width=17, num_hashes=4)
+    obl.add_reads([r.bases for r in tp_reads])
+    fixed = _oracle_correct(tp_reads, 31, t1, obl.query, tp_fq,
+                            "two-pass pass 1")
+    _oracle_assembly(fixed, 63, tp_fa, "two-pass k=63")
+    if res["threshold_k1"] != t1:
+        raise AssertionError(f"threshold_k1 {res['threshold_k1']} != {t1}")
+    say(f"phase3 golden pipeline --k2 63: {res}; pass-1 FASTQ equal to the "
+        f"oracle's at k=31 and FASTA to oracle.assemble_fasta at k=63")
+
+    out_fq, out_fa, want = out_fq_hash, out_fa_hash, want_hash
     # the align subcommand: corrected reads back to the golden's contigs
     from oracle.align import build_contig_index as oracle_index
     from oracle.align import validate_read
@@ -750,6 +983,7 @@ def phase_golden(workdir: str, device=DEVICE):
                                  f"{row!r} vs {(wf, ws, wp, wsc)}")
     say(f"phase3 golden align: {len(rows)} TSV rows equal to "
         f"oracle.align.validate_read; {stats}")
+    return {"golden_minimizer_pipeline": launches["minimizer"]}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1028,6 +1262,9 @@ def phase_config1(workdir: str, recs=None,
     num(f"phase4 end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     num(f"phase4 kernel launches on the main path: {launches}")
+    if torch.cuda.max_memory_allocated() > C1_PEAK_BYTES:
+        raise AssertionError("config 1 peak device memory above "
+                             f"{C1_PEAK_BYTES} bytes")
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
@@ -1075,6 +1312,8 @@ def phase_config3(workdir: str):
     import torch
     from kmerax_torch.utils import cuda
 
+    say(f"phase5 CUT: genome {C3_GENOME} bp, not chr21's {C3_FULL_GENOME} "
+        f"bp")
     t0 = time.perf_counter()
     paths, noisy, truth, seq_off = simulate_pairs(workdir, C3_GENOME,
                                                   C3_COVERAGE, C3_ERROR)
@@ -1150,6 +1389,183 @@ def phase_config3(workdir: str):
     return {"config3_pipeline_validate": launches, "config3_align": alaunch}
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _contig_bases(fasta: str) -> int:
+    with open(fasta) as f:
+        return sum(len(ln) - 1 for ln in f if not ln.startswith(">"))
+
+
+def _bars(tag: str, outs, noisy, truth, seq_off) -> None:
+    """Config 3's accuracy bars: errors introduced <= 0.001 x before, gain
+    >= 0.95."""
+    before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
+    num(f"{tag} accuracy: errors_before {before}, errors_remaining {after}, "
+        f"errors_introduced {introduced}, gain {gain:.4f}")
+    if introduced > 0.001 * before:
+        raise AssertionError(f"{tag}: errors_introduced {introduced} > "
+                             f"0.001 x {before}")
+    if gain < 0.95:
+        raise AssertionError(f"{tag}: gain {gain:.4f} < 0.95")
+
+
+def _same_bytes(a: str, b: str, what: str) -> None:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{what}: {os.path.basename(a)} differs "
+                                 f"from {os.path.basename(b)}")
+
+
+def phase_config5(workdir: str):
+    """BASELINE config 5 (two-pass k=31 -> k2=63, correct + assemble) on a
+    2.0 Mb genome: (a) `pipeline --k2 63` through the CLI, held to config
+    3's bars; (b) run_two_pass with a workdir, crashed after the count_k2
+    checkpoint and resumed, byte-equal to (a); (c) `correct --spectrum`
+    and `assemble --spectrum` on (b)'s checkpoints, byte-equal to (a), and
+    `correct --use-exact`. Returns each run's own launches."""
+    import torch
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.pipeline import twopass
+    from kmerax_torch.utils import cuda
+
+    t_phase = time.perf_counter()
+    say(f"phase6 CUT: genome {C5_GENOME} bp (the size of "
+        f"ACCEPTANCE_full_c5.json), not the human genome's 3.1 Gb")
+    paths, noisy, truth, seq_off = simulate_pairs(workdir, C5_GENOME,
+                                                  C5_COVERAGE, C5_ERROR)
+    n_reads = sum(len(b) for b in noisy)
+    n_batches = sum(-(-len(b) // C5_CFG["batch_reads"]) for b in noisy)
+    num(f"phase6 simulated {n_reads} reads (PE{READ_LEN}, genome "
+        f"{C5_GENOME} bp, {C5_COVERAGE}x, error {C5_ERROR}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    runs = {}
+
+    def outs(tag):
+        return ([os.path.join(workdir, f"{tag}_{i + 1}.fastq")
+                 for i in range(2)], os.path.join(workdir, f"{tag}.fasta"))
+
+    # (a) pipeline --k2 63
+    a_fq, a_fa = outs("a")
+    metrics = os.path.join(workdir, "metrics.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    res, wall = _cli("phase6", workdir, [
+        "pipeline", "--in", *paths, "--out-fastq", *a_fq, "--out-fasta",
+        a_fa, "--k2", "63", "--metrics", metrics, "--device", DEVICE,
+        *C5_ARGS])
+    runs["config5_pipeline_k2"] = dict(cuda.LAUNCHES)
+    st = _stages(metrics)
+    c1, c2 = st["count"]
+    num(f"phase6 (a) stages: count k=31 {c1['wall_s']} s "
+        f"({c1['kmers'] / c1['wall_s']:.1f} k-mers/s, threshold "
+        f"{c1['threshold']}), correct {st['correct'][0]['wall_s']} s "
+        f"({st['correct'][0]['reads'] / st['correct'][0]['wall_s']:.1f} "
+        f"reads/s), count k=63 {c2['wall_s']} s (threshold "
+        f"{c2['threshold']}), assemble {st['assemble'][0]['wall_s']} s")
+    bases = _contig_bases(a_fa)
+    num(f"phase6 (a) end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
+        f"peak device memory {torch.cuda.max_memory_allocated()} bytes; "
+        f"{res}; {bases} contig bases; launches "
+        f"{runs['config5_pipeline_k2']}")
+    if runs["config5_pipeline_k2"]["bloom_insert"] != 2 * n_batches:
+        raise AssertionError(f"K1 launched "
+                             f"{runs['config5_pipeline_k2']['bloom_insert']} "
+                             f"times, not once per batch of both passes "
+                             f"({2 * n_batches})")
+    for name in MAIN_PATH_KERNELS:
+        if runs["config5_pipeline_k2"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched")
+    if res["reads"] != n_reads or abs(bases - C5_GENOME) > 0.05 * C5_GENOME:
+        raise AssertionError(f"bad two-pass result {res}, {bases} bases")
+    _bars("phase6 (a)", a_fq, noisy, truth, seq_off)
+
+    # (b) crash after the count_k2 checkpoint, then resume
+    b_fq, b_fa = outs("b")
+    work = os.path.join(workdir, "work")
+    cfg = KmeraxConfig(**C5_CFG, k2=63)
+    secs = {"save": 0.0, "load": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return run
+
+    def boom(*a, **kw):
+        raise RuntimeError("injected failure after the count_k2 checkpoint")
+
+    orig = {n: getattr(twopass, n) for n in
+            ("save_spectrum", "load_spectrum", "assemble_to_fasta")}
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        twopass.save_spectrum = timed("save", orig["save_spectrum"])
+        twopass.load_spectrum = timed("load", orig["load_spectrum"])
+        twopass.assemble_to_fasta = boom
+        try:
+            twopass.run_two_pass(cfg, paths, b_fq, b_fa, workdir=work,
+                                 device=DEVICE)
+            raise AssertionError("the injected failure did not happen")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        crash_wall = time.perf_counter() - t0
+        twopass.assemble_to_fasta = orig["assemble_to_fasta"]
+        t0 = time.perf_counter()
+        twopass.run_two_pass(cfg, paths, b_fq, b_fa, workdir=work,
+                             device=DEVICE)
+        resume_wall = time.perf_counter() - t0
+    finally:
+        for n, fn in orig.items():
+            setattr(twopass, n, fn)
+    runs["config5_crash_resume"] = dict(cuda.LAUNCHES)
+    ck = {stage: sum(os.path.getsize(os.path.join(work, stage, f))
+                     for f in os.listdir(os.path.join(work, stage)))
+          for stage in ("count_k1", "count_k2")}
+    for a, b in zip(a_fq + [a_fa], b_fq + [b_fa]):
+        _same_bytes(b, a, "phase6 (b) resume")
+    num(f"phase6 (b) crash after the count_k2 checkpoint at "
+        f"{crash_wall:.2f} s, resume {resume_wall:.2f} s; FASTQ and FASTA "
+        f"bytes equal to (a); checkpoint bytes {ck}; save "
+        f"{secs['save']:.4f} s (two saves), load {secs['load']:.4f} s")
+
+    # (c) the subcommands on (b)'s checkpoints
+    c_fq, c_fa = outs("c")
+    cuda.reset_launches()
+    stats, cwall = _cli("phase6", workdir, [
+        "correct", "--in", *paths, "--out", *c_fq, "--spectrum",
+        os.path.join(work, "count_k1"), "--device", DEVICE, *C5_ARGS])
+    runs["config5_correct_spectrum"] = dict(cuda.LAUNCHES)
+    for a, b in zip(a_fq, c_fq):
+        _same_bytes(b, a, "phase6 (c) correct --spectrum")
+    cuda.reset_launches()
+    astats, awall = _cli("phase6", workdir, [
+        "assemble", "--spectrum", os.path.join(work, "count_k2"), "--out",
+        c_fa, "--device", DEVICE, *C5_ARGS, "-k", "63"])   # the last -k
+    runs["config5_assemble_spectrum"] = dict(cuda.LAUNCHES)
+    _same_bytes(c_fa, a_fa, "phase6 (c) assemble --spectrum")
+    num(f"phase6 (c) correct --spectrum: {cwall:.2f} s, "
+        f"{n_reads / cwall:.1f} reads/s, {stats}; assemble --spectrum -k 63: "
+        f"{awall:.2f} s, {astats}; bytes equal to (a)'s")
+    x_fq, _ = outs("x")
+    cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    xstats, xwall = _cli("phase6", workdir, [
+        "correct", "--in", *paths, "--out", *x_fq, "--use-exact",
+        "--spectrum", os.path.join(work, "count_k1"), "--device", DEVICE,
+        *C5_ARGS])
+    runs["config5_correct_exact"] = dict(cuda.LAUNCHES)
+    num(f"phase6 (c) correct --use-exact --spectrum: {xwall:.2f} s, "
+        f"{n_reads / xwall:.1f} reads/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes, {xstats}")
+    _bars("phase6 (c) --use-exact", x_fq, noisy, truth, seq_off)
+    num(f"phase6 wall {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1163,14 +1579,16 @@ def main() -> int:
     recs = phase_kernels()
     paths = {}                       # path -> its own run's launches
     for phase in (phase_golden, functools.partial(phase_config1, recs=recs),
-                  phase_config3):
+                  phase_config3, phase_config5):
         workdir = tempfile.mkdtemp(prefix="kmerax_smoke_")
         try:
             paths.update(phase(workdir) or {})
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     for r in recs:
-        by_path = {p: n[r["name"]] for p, n in paths.items()}
+        # a path whose name says "minimizer" ran under that scheme only
+        by_path = {p: n[r["name"]] for p, n in paths.items()
+                   if ("minimizer" in p) == (r["scheme"] == "minimizer")}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
     if "jax" in sys.modules or "kmerax" in sys.modules:

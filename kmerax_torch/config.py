@@ -21,7 +21,7 @@ class KmeraxConfig:
     k: int = 31
     minimizer_m: int = 11
     num_buckets: int = 256
-    # "hash": bucket = h1 bits (DESIGN.md §5a); "minimizer": not yet ported
+    # "hash": bucket = h1 bits (DESIGN.md §5a); "minimizer": DESIGN.md §4
     bucket_scheme: str = "hash"
 
     # counting Bloom spectrum (DESIGN.md §5)
@@ -120,8 +120,6 @@ class KmeraxConfig:
     def unported_fields(self) -> list[str]:
         """Settings that select a path the port does not have yet."""
         out = []
-        if self.bucket_scheme != "hash":
-            out.append(f"bucket_scheme={self.bucket_scheme!r}")
         if self.bloom_counter == "p16":
             out.append("bloom_counter='p16'")
         if self.mesh_data * self.mesh_bucket != 1:

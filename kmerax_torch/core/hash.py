@@ -44,16 +44,27 @@ def kmer_hash(words: torch.Tensor, seed: int) -> torch.Tensor:
     return h
 
 
-def bloom_blocks_lanes(words: torch.Tensor, log2_width: int, d: int):
-    """Register-blocked Bloom addressing, hash bucket scheme (DESIGN.md
-    §§5, 5a): the block is the low (log2_width - 7) bits of h1 and the d
-    probes are 7-bit lanes of h2 inside that 128-counter block.
+def bloom_blocks_lanes(words: torch.Tensor, log2_width: int, d: int,
+                       buckets: torch.Tensor | None = None,
+                       log2_buckets: int = 0):
+    """Register-blocked Bloom addressing (DESIGN.md §5): every k-mer maps to
+    one 128-counter block and its d probes are 7-bit lanes of h2 inside it.
+
+    `buckets=None` selects the hash scheme (DESIGN.md §5a): the block is
+    the low (log2_width - 7) bits of h1. Otherwise (the minimizer scheme,
+    DESIGN.md §4) the block is the k-mer's bucket above the low
+    (log2_width - 7 - log2_buckets) bits of h1.
 
     Returns (block (...) int32 global block index, lanes (..., d) int32).
     """
     assert d <= 4
     h1 = kmer_hash(words, HASH_SEED_1)
     h2 = kmer_hash(words, HASH_SEED_2)
-    block = h1 & ((1 << (log2_width - 7)) - 1)
+    if buckets is None:
+        block = h1 & ((1 << (log2_width - 7)) - 1)
+    else:
+        seg_blocks_bits = log2_width - 7 - log2_buckets
+        block = (buckets.to(torch.int64) << seg_blocks_bits) \
+            | (h1 & ((1 << seg_blocks_bits) - 1))
     lanes = torch.stack([(h2 >> (7 * i)) & 127 for i in range(d)], dim=-1)
     return block.to(torch.int32), lanes.to(torch.int32)

@@ -14,6 +14,9 @@
 //
 // Addressing (DESIGN.md §5): every k-mer owns one 128-counter block row of
 // the int32 table and d <= 4 lanes in it, 7 bits each of its second hash.
+// The row comes from kmerax_block (kmerax.cuh) under the bucket scheme, a
+// template parameter: the hash scheme's low bits of h1, or the minimizer
+// scheme's bucket above them (k-m+1 more mix32 per k-mer).
 // K1 adds +1 per probe (a repeated lane gets +2); K2 reports whether every
 // probed lane is >= t. Invalid k-mers add nothing and report 0.
 //
@@ -66,10 +69,11 @@ static __device__ __forceinline__ void pack_read(uint32_t* P, uint32_t* N,
     __syncwarp();
 }
 
-template <int W>
+template <int W, bool kMinimizer>
 __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
                                     const int8_t* __restrict__ bases, int B,
                                     int L, int k, uint32_t block_mask, int d,
+                                    int m, int log2_buckets,
                                     uint32_t* __restrict__ pending,
                                     int64_t off,
                                     unsigned long long* __restrict__ n_valid) {
@@ -97,7 +101,8 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
                                                      KMERAX_HASH_SEED_1);
                 const uint32_t h2 = kmerax_kmer_hash(words, W,
                                                      KMERAX_HASH_SEED_2);
-                int32_t* trow = table + (size_t)(h1 & block_mask) * 128;
+                int32_t* trow = table + (size_t)kmerax_block<W, kMinimizer>(
+                    words, k, h1, block_mask, m, log2_buckets) * 128;
                 for (int i = 0; i < d; ++i)
                     atomicAdd(trow + ((h2 >> (7 * i)) & 127u), 1);
             }
@@ -117,12 +122,13 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
         atomicAdd(n_valid, (unsigned long long)block_valid);
 }
 
-template <int W>
+template <int W, bool kMinimizer>
 __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
                                          const int32_t* __restrict__ bases,
                                          int B, int L, int k,
                                          const int32_t* __restrict__ last_j,
-                                         uint32_t block_mask, int d, int t,
+                                         uint32_t block_mask, int d, int m,
+                                         int log2_buckets, int t,
                                          uint8_t* __restrict__ out) {
     extern __shared__ uint32_t smem[];
     const int nch = (L + 31) / 32;
@@ -144,80 +150,59 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
             kmerax_canonicalize(words, W, k);
             const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
             const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = kmerax_probe_two_rounds(table, h1 & block_mask, h2, d, t);
+            solid = kmerax_probe_two_rounds(
+                table, kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
+                                                   m, log2_buckets),
+                h2, d, t);
         }
         if (j < nk) orow[j] = solid;
     }
 }
 
-template <int W>
-cudaError_t launch_insert(int32_t* table, const int8_t* bases, int B, int L,
-                          int k, uint32_t block_mask, int d,
-                          uint32_t* pending, int64_t off,
-                          unsigned long long* n_valid, cudaStream_t stream) {
-    const int nch = (L + 31) / 32;
-    const size_t smem = (size_t)kWarps * (3 * nch + 1) * sizeof(uint32_t);
-    if (smem > 48 * 1024) return cudaErrorInvalidValue;
-    bloom_insert_kernel<W><<<(unsigned)((B + kWarps - 1) / kWarps), kThreads,
-                             smem, stream>>>(table, bases, B, L, k,
-                                             block_mask, d, pending, off,
-                                             n_valid);
-    return cudaGetLastError();
-}
-
-template <int W>
-cudaError_t launch_query(const int32_t* table, const int32_t* bases, int B,
-                         int L, int k, const int32_t* last_j,
-                         uint32_t block_mask, int d, int t, uint8_t* out,
-                         cudaStream_t stream) {
-    const int nch = (L + 31) / 32;
-    const size_t smem = (size_t)kWarps * (3 * nch + 1) * sizeof(uint32_t);
-    if (smem > 48 * 1024) return cudaErrorInvalidValue;
-    bloom_query_solid_kernel<W><<<(unsigned)((B + kWarps - 1) / kWarps),
-                                  kThreads, smem, stream>>>(
-        table, bases, B, L, k, last_j, block_mask, d, t, out);
-    return cudaGetLastError();
+cudaError_t smem_bytes(int L, size_t* smem) {
+    *smem = (size_t)kWarps * (3 * ((L + 31) / 32) + 1) * sizeof(uint32_t);
+    return *smem > 48 * 1024 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
                                    int B, int L, int k, uint32_t block_mask,
-                                   int d, int32_t* pending, int64_t off,
+                                   int d, int m, int log2_buckets,
+                                   int32_t* pending, int64_t off,
                                    int64_t* n_valid, cudaStream_t stream) {
     if (B <= 0) return (int)cudaGetLastError();
+    size_t smem;
+    if (smem_bytes(L, &smem) != cudaSuccess) return (int)cudaErrorInvalidValue;
     uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
     auto* nv = reinterpret_cast<unsigned long long*>(n_valid);
-    switch ((k + 15) / 16) {
-        case 1: return (int)launch_insert<1>(table, bases, B, L, k, block_mask,
-                                             d, pend, off, nv, stream);
-        case 2: return (int)launch_insert<2>(table, bases, B, L, k, block_mask,
-                                             d, pend, off, nv, stream);
-        case 3: return (int)launch_insert<3>(table, bases, B, L, k, block_mask,
-                                             d, pend, off, nv, stream);
-        case 4: return (int)launch_insert<4>(table, bases, B, L, k, block_mask,
-                                             d, pend, off, nv, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
+    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
+        bloom_insert_kernel<decltype(w)::value, decltype(mz)::value>
+            <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k,
+                                               block_mask, d, m, log2_buckets,
+                                               pend, off, nv);
+        return cudaGetLastError();
+    });
 }
 
 extern "C" int kmerax_bloom_query_solid(const int32_t* table,
                                         const int32_t* bases, int B, int L,
                                         int k, const int32_t* last_j,
-                                        uint32_t block_mask, int d, int t,
-                                        uint8_t* out, cudaStream_t stream) {
+                                        uint32_t block_mask, int d, int m,
+                                        int log2_buckets, int t, uint8_t* out,
+                                        cudaStream_t stream) {
     if (B <= 0) return (int)cudaGetLastError();
-    switch ((k + 15) / 16) {
-        case 1: return (int)launch_query<1>(table, bases, B, L, k, last_j,
-                                            block_mask, d, t, out, stream);
-        case 2: return (int)launch_query<2>(table, bases, B, L, k, last_j,
-                                            block_mask, d, t, out, stream);
-        case 3: return (int)launch_query<3>(table, bases, B, L, k, last_j,
-                                            block_mask, d, t, out, stream);
-        case 4: return (int)launch_query<4>(table, bases, B, L, k, last_j,
-                                            block_mask, d, t, out, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    size_t smem;
+    if (smem_bytes(L, &smem) != cudaSuccess) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
+    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
+        bloom_query_solid_kernel<decltype(w)::value, decltype(mz)::value>
+            <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k, last_j,
+                                               block_mask, d, m, log2_buckets,
+                                               t, out);
+        return cudaGetLastError();
+    });
 }
 
 extern "C" const char* kmerax_cuda_error_string(int code) {

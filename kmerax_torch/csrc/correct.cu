@@ -9,7 +9,10 @@
 // each of the 4 center substitutions v and each of the k windows j that
 // cover ic, the k-mer bases[ic-(k-1)+j .. ic+j] with base v at ic is built,
 // canonicalized, hashed with murmur3 and probed against the counter table;
-// scores[q][v] counts the solid (v, j) k-mers. Positions outside
+// scores[q][v] counts the solid (v, j) k-mers. The block row comes from
+// kmerax_block under either bucket scheme (a template parameter), as in K1
+// and K2; the TPU kernel's hash-scheme-only restriction is an artifact of
+// its layout and does not carry over. Positions outside
 // [0, length) read as base 4 (invalid); the center is always valid; window
 // j counts only when its start lies in [0, last_j] of the read.
 //
@@ -44,13 +47,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSpanChunks = 4;           // 2k-1 <= 125 bases: 4 chunks of 32
 
 // WPV warps per (entry, variant): 1 for k <= 32, 2 for k <= 63
-template <int W, int WPV>
+template <int W, int WPV, bool kMinimizer>
 __global__ void correct_eval_scores_kernel(
     const int32_t* __restrict__ bases, int L,
     const int32_t* __restrict__ lengths, const int32_t* __restrict__ last_j,
     const int32_t* __restrict__ ent_r, const int32_t* __restrict__ ent_i,
     int64_t Q, const int32_t* __restrict__ table, uint32_t block_mask, int d,
-    int t, int k, int32_t* __restrict__ scores) {
+    int m, int log2_buckets, int t, int k, int32_t* __restrict__ scores) {
     constexpr int kWarpsPerEntry = 4 * WPV;
     constexpr int kEntries = kWarps / kWarpsPerEntry;
     __shared__ uint32_t sP[kEntries][2 * kSpanChunks + 1];
@@ -101,8 +104,10 @@ __global__ void correct_eval_scores_kernel(
             kmerax_canonicalize(words, W, k);
             const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
             const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = kmerax_probe_two_rounds(table, h1 & block_mask, h2, d,
-                                            t);
+            solid = kmerax_probe_two_rounds(
+                table, kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
+                                                   m, log2_buckets),
+                h2, d, t);
         }
     }
     const int n = __popc(__ballot_sync(KMERAX_FULL_MASK, solid));
@@ -121,41 +126,22 @@ __global__ void correct_eval_scores_kernel(
     }
 }
 
-template <int W, int WPV>
-cudaError_t launch(const int32_t* bases, int L, const int32_t* lengths,
-                   const int32_t* last_j, const int32_t* ent_r,
-                   const int32_t* ent_i, int64_t Q, const int32_t* table,
-                   uint32_t block_mask, int d, int t, int k, int32_t* scores,
-                   cudaStream_t stream) {
-    constexpr int kEntries = kWarps / (4 * WPV);
-    correct_eval_scores_kernel<W, WPV>
-        <<<(unsigned)((Q + kEntries - 1) / kEntries), kThreads, 0, stream>>>(
-            bases, L, lengths, last_j, ent_r, ent_i, Q, table, block_mask, d,
-            t, k, scores);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int kmerax_correct_eval_scores(
     const int32_t* bases, int L, const int32_t* lengths,
     const int32_t* last_j, const int32_t* ent_r, const int32_t* ent_i,
-    int64_t Q, const int32_t* table, uint32_t block_mask, int d, int t, int k,
-    int32_t* scores, cudaStream_t stream) {
+    int64_t Q, const int32_t* table, uint32_t block_mask, int d, int m,
+    int log2_buckets, int t, int k, int32_t* scores, cudaStream_t stream) {
     if (Q <= 0) return (int)cudaGetLastError();
-    switch ((k + 15) / 16) {
-        case 1: return (int)launch<1, 1>(bases, L, lengths, last_j, ent_r,
-                                         ent_i, Q, table, block_mask, d, t, k,
-                                         scores, stream);
-        case 2: return (int)launch<2, 1>(bases, L, lengths, last_j, ent_r,
-                                         ent_i, Q, table, block_mask, d, t, k,
-                                         scores, stream);
-        case 3: return (int)launch<3, 2>(bases, L, lengths, last_j, ent_r,
-                                         ent_i, Q, table, block_mask, d, t, k,
-                                         scores, stream);
-        case 4: return (int)launch<4, 2>(bases, L, lengths, last_j, ent_r,
-                                         ent_i, Q, table, block_mask, d, t, k,
-                                         scores, stream);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
+        constexpr int W = decltype(w)::value;
+        constexpr int WPV = W <= 2 ? 1 : 2;
+        constexpr int kEntries = kWarps / (4 * WPV);
+        correct_eval_scores_kernel<W, WPV, decltype(mz)::value>
+            <<<(unsigned)((Q + kEntries - 1) / kEntries), kThreads, 0,
+               stream>>>(bases, L, lengths, last_j, ent_r, ent_i, Q, table,
+                         block_mask, d, m, log2_buckets, t, k, scores);
+        return cudaGetLastError();
+    });
 }

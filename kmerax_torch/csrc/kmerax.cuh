@@ -1,11 +1,14 @@
 // Shared device helpers of the port's kernels: the 2-bit codec, the
 // canonical form and the murmur3 probe hash over native uint32 words, the
-// two-round solidity probe of K2 and K3, and the packed-window layout K1-K3
-// build their k-mers from.
-// Bit-exact with kmerax_torch/core/{codec,hash,kmers}.py (DESIGN.md §§2-3, 5).
+// block row under either bucket scheme, the two-round solidity probe of K2
+// and K3, the packed-window layout K1-K3 build their k-mers from, and the
+// host dispatch over the word count and the scheme.
+// Bit-exact with kmerax_torch/core/{codec,hash,kmers,minimizer}.py
+// (DESIGN.md §§2-5).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #define KMERAX_HASH_SEED_1 0x9E3779B1u
@@ -56,6 +59,58 @@ static __device__ __forceinline__ uint32_t kmerax_kmer_hash(const uint32_t* word
     uint32_t h = kmerax_mix32(seed);
     for (int i = 0; i < W; ++i) h = kmerax_mix32(h ^ words[i]);
     return h;
+}
+
+// the 128-counter block row of a canonical k-mer (K1-K3). Hash scheme
+// (DESIGN.md §5a): the low bits of h1 under block_mask. Minimizer scheme
+// (DESIGN.md §4): the bucket, the minimizer (the least kmerax_mix32 over the
+// k-m+1 m-mers of 2m bits, core/minimizer.py) modulo 2^log2_buckets, above
+// the low log2(blocks) - log2_buckets bits of h1. The scheme is a template
+// parameter, so the hash instantiation holds no minimizer code.
+template <int W, bool kMinimizer>
+static __device__ __forceinline__ uint32_t kmerax_block(
+    const uint32_t* words, int k, uint32_t h1, uint32_t block_mask, int m,
+    int log2_buckets) {
+    if constexpr (!kMinimizer) {
+        return h1 & block_mask;
+    } else {
+        const uint32_t mmask = (1u << (2 * m)) - 1u;   // 2m <= 30
+        uint32_t best = KMERAX_FULL_MASK;
+        for (int j = 0; j <= k - m; ++j) {
+            const int p = 2 * (k - m - j);    // bit offset of the m-mer at j
+            const int wi = p >> 5, sb = p & 31;
+            uint32_t lo = 0, hi = 0;          // words wi and wi+1 (0 past W)
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+                if (w == wi) lo = words[w];
+                if (w == wi + 1) hi = words[w];
+            }
+            const uint32_t val = sb ? ((lo >> sb) | (hi << (32 - sb))) : lo;
+            best = min(best, kmerax_mix32(val & mmask));
+        }
+        const int seg_bits = __popc(block_mask) - log2_buckets;
+        const uint32_t bucket = best & ((1u << log2_buckets) - 1u);
+        return (bucket << seg_bits) | (h1 & (block_mask >> log2_buckets));
+    }
+}
+
+// host side: f(std::integral_constant<int, W>, std::bool_constant<kMinimizer>)
+// for W = ceil(k/16) and the scheme (m > 0 selects the minimizer scheme)
+template <typename F>
+static cudaError_t kmerax_dispatch(int k, int m, F&& f) {
+    using std::integral_constant;
+    const bool mz = m > 0;
+    switch ((k + 15) / 16) {
+        case 1: return mz ? f(integral_constant<int, 1>{}, std::true_type{})
+                          : f(integral_constant<int, 1>{}, std::false_type{});
+        case 2: return mz ? f(integral_constant<int, 2>{}, std::true_type{})
+                          : f(integral_constant<int, 2>{}, std::false_type{});
+        case 3: return mz ? f(integral_constant<int, 3>{}, std::true_type{})
+                          : f(integral_constant<int, 3>{}, std::false_type{});
+        case 4: return mz ? f(integral_constant<int, 4>{}, std::true_type{})
+                          : f(integral_constant<int, 4>{}, std::false_type{});
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 // solidity of one k-mer against the int32 counter table (K2, K3): every one

@@ -1,9 +1,10 @@
 """ctypes loader + auto-build for the C++ FASTQ parser (port of
 kmerax/io/native.py).
 
-The parser source is the JAX package's `kmerax/io/_fastq_ext.cc`, read by
-path (nothing of that package is imported). It is compiled with g++ on
-first use into `kmerax_torch/_build/`, keyed by a hash of the source.
+The parser source is this package's own copy of the JAX package's
+`kmerax/io/_fastq_ext.cc`, `kmerax_torch/io/_fastq_ext.cc`. It is compiled
+with g++ on first use into `kmerax_torch/_build/`, keyed by a hash of the
+source.
 Without a compiler, batching falls back to the pure-Python parser, which
 gives identical batches.
 """
@@ -22,7 +23,7 @@ from kmerax_torch.utils.logging import get_logger
 
 log = get_logger("kmerax_torch.io.native")
 
-_SRC = Path(__file__).resolve().parents[2] / "kmerax" / "io" / "_fastq_ext.cc"
+_SRC = Path(__file__).resolve().parent / "_fastq_ext.cc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 
 # no -march=native: a build directory copied to another machine must load

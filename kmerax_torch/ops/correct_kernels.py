@@ -17,7 +17,8 @@ import torch
 
 from kmerax_torch.ops.correct import _accept, _eval_scores
 from kmerax_torch.spectrum.bloom import BloomParams, query_solid
-from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid
+from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid, \
+    scheme_args
 from kmerax_torch.utils import cuda
 
 
@@ -51,8 +52,9 @@ def correct_eval_scores(params: BloomParams, table: torch.Tensor, t: int,
     rc = cuda.lib().kmerax_correct_eval_scores(
         bases.data_ptr(), L, lengths.data_ptr(), last_j.data_ptr(),
         ent_r.data_ptr(), ent_i.data_ptr(), Q, table.data_ptr(),
-        (1 << (params.log2_width - 7)) - 1, params.num_hashes, int(t),
-        params.k, scores.data_ptr(), cuda.stream())
+        (1 << (params.log2_width - 7)) - 1, params.num_hashes,
+        *scheme_args(params), int(t), params.k, scores.data_ptr(),
+        cuda.stream())
     cuda.LAUNCHES["correct_eval_scores"] += 1
     cuda.check(rc, "correct_eval_scores")
     return scores

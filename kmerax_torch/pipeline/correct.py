@@ -5,11 +5,20 @@ Each batch runs ops/correct.py::correct_batch against the count table: the
 round-start solidity through kernel K2 and the candidate scoring through
 kernel K3 on the card (their plain versions on the CPU). Corrected reads
 are written with names and qualities byte-identical (DESIGN.md §11).
+
+`use_exact` corrects against the exact spectrum instead (`correct
+--use-exact`; kmerax/pipeline/run.py::run_correct): solidity is a binary
+search of the sentinel-padded sorted spectrum (spectrum/exact.py::
+lookup_sorted) in torch ops. That is not a plain version standing in for a
+kernel: the JAX package runs no Pallas kernel on this path either (B2 and
+B3 probe the Bloom table, not the sorted spectrum).
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.io.batcher import BackgroundBatcher
@@ -18,6 +27,7 @@ from kmerax_torch.ops.correct import correct_batch
 from kmerax_torch.ops.correct_kernels import make_eval_fn, make_window_fn
 from kmerax_torch.pipeline.count import CountState, bloom_params, \
     to_device_batch
+from kmerax_torch.spectrum.exact import lookup_sorted
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
 
@@ -40,12 +50,31 @@ def make_correct_step(params, table, t, *, rounds, max_runs, max_edits):
     return step
 
 
+def make_exact_step(uniq, counts, k, t, *, rounds, max_runs, max_edits):
+    """step(bases, lengths) -> (corrected int8 (B, L), n_edits (B,)) with
+    solidity from the padded exact spectrum (uniq, counts) on its device."""
+    def solid_fn(cw, v):
+        return (torch.where(v, lookup_sorted(uniq, counts, cw)[0], 0)
+                >= t) & v
+
+    def step(bases, lengths):
+        fixed, ne = correct_batch(bases, lengths, k, t, solid_fn,
+                                  rounds=rounds, max_runs=max_runs,
+                                  max_edits=max_edits)
+        return fixed.to(bases.dtype), ne
+
+    return step
+
+
 def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
-                *, device, metrics: Optional[MetricsWriter] = None) -> dict:
+                *, device, metrics: Optional[MetricsWriter] = None,
+                use_exact: bool = False) -> dict:
     """Correct pass: stream -> correct_batch -> FASTQ.
 
     `out_path` is one path (all inputs into one output) or a list with one
-    path per input (paired-end R1/R2 outputs)."""
+    path per input (paired-end R1/R2 outputs). `use_exact` queries the
+    exact spectrum instead of the Bloom table; it raises "exact spectrum
+    not built" where the state has no padded exact form."""
     m = metrics or MetricsWriter(None)
     if isinstance(paths, str):
         paths = [paths]
@@ -56,10 +85,15 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
     else:
         units = [(paths, out_path)]
 
-    table = state.bloom_table.to(device)
-    step = make_correct_step(
-        bloom_params(cfg, cfg.k), table, state.threshold, rounds=cfg.rounds,
-        max_runs=cfg.max_runs, max_edits=cfg.max_edits)
+    kw = dict(rounds=cfg.rounds, max_runs=cfg.max_runs,
+              max_edits=cfg.max_edits)
+    if use_exact:
+        uniq, counts, _ = state.exact(device)
+        step = make_exact_step(uniq, counts, cfg.k, state.threshold, **kw)
+    else:
+        step = make_correct_step(bloom_params(cfg, cfg.k),
+                                 state.bloom_table.to(device),
+                                 state.threshold, **kw)
 
     n_reads = n_edited = n_edits = 0
     m.stage_start("correct")

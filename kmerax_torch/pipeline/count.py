@@ -8,6 +8,9 @@ torch). When the buffer fills, and once at the end, the host merges it into
 the sorted exact spectrum (np_merge_counted). Counts are
 order-free sums, so any flush schedule gives the same spectrum
 (DESIGN.md §13). The stage ends with the histogram and the threshold.
+A spectrum with fewer distinct k-mers than `exact_capacity` also has the
+JAX package's sentinel-padded device form (`CountState.exact`), built only
+when a caller asks for it.
 """
 
 from __future__ import annotations
@@ -43,13 +46,25 @@ class CountState:
     n_reads: int
     n_kmers: int
     host: Optional[HostSpectrum] = None   # set when exact_spectrum=True
+    # rows of the padded exact form (the JAX package's CountState.exact,
+    # kept on its device when n_unique < exact_capacity); None past it
+    exact_cap: Optional[int] = None
+
+    def exact(self, device):
+        """(uniq (cap, W) int64 words, counts (cap,) int32, n) on `device`,
+        padded as the JAX package pads them; raises past capacity."""
+        if self.exact_cap is None or self.host is None:
+            raise ValueError("exact spectrum not built")
+        return self.host.to_device(self.exact_cap, device)
 
 
 def bloom_params(cfg: KmeraxConfig, k: int) -> BloomParams:
     """The port's Bloom parameters: i32 counters ("auto" resolves to i32,
-    as the JAX package does off a TPU) and the hash bucket scheme."""
+    as the JAX package does off a TPU) and the config's bucket scheme."""
     cfg.require_ported()
-    return BloomParams(k, cfg.bloom_log2_width, cfg.bloom_hashes)
+    return BloomParams(k, cfg.bloom_log2_width, cfg.bloom_hashes,
+                       cfg.minimizer_m, (cfg.num_buckets - 1).bit_length(),
+                       cfg.bucket_scheme)
 
 
 def to_device_batch(batch, device):
@@ -120,10 +135,16 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     n_kmers = int(n_kmers)
     hist = None
     host = None
+    exact_cap = None
     if host_ex is not None:
         host = HostSpectrum(*host_ex, k)
         log.info("count: %d reads, %d k-mers, %d distinct",
                  n_reads, n_kmers, host.n_unique)
+        if host.n_unique < cfg.exact_capacity:
+            exact_cap = cfg.exact_capacity
+        else:
+            log.info("count: %d distinct >= capacity %d — no padded exact "
+                     "form", host.n_unique, cfg.exact_capacity)
         hist = host.histogram(255)
     if cfg.threshold is None and hist is None:
         raise ValueError("auto threshold needs exact_spectrum=True")
@@ -131,7 +152,8 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
         else cfg.threshold
     m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t)
     log.info("count: threshold=%d", t)
-    return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host)
+    return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host,
+                      exact_cap=exact_cap)
 
 
 def count_state_from_numpy(cfg: KmeraxConfig, table, uniq, counts,
@@ -146,5 +168,6 @@ def count_state_from_numpy(cfg: KmeraxConfig, table, uniq, counts,
     if table.shape != (1 << cfg.bloom_log2_width,):
         raise ValueError(f"table shape {tuple(table.shape)} does not match "
                          f"bloom_log2_width={cfg.bloom_log2_width}")
+    cap = cfg.exact_capacity if host.n_unique < cfg.exact_capacity else None
     return CountState(cfg, table, host.histogram(255), int(threshold), 0, 0,
-                      host=host)
+                      host=host, exact_cap=cap)

@@ -1,0 +1,120 @@
+"""Two-pass correct+assemble pipeline on one device (port of
+kmerax/pipeline/twopass.py; BASELINE.md config 5).
+
+Pass 1: count at k -> correct reads. Pass 2: re-count the corrected reads
+at k2 -> unitig assembly. With a `workdir`, every count stage checkpoints
+its spectrum (pipeline/checkpoint.py) and every stage writes a done-marker,
+so a crashed run resumes from the last complete stage and re-runs only the
+unfinished ones; the resumed output is byte-identical to an uninterrupted
+run. One process: it is always the writer of the markers.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from kmerax_torch.config import KmeraxConfig
+from kmerax_torch.graph.unitig import assemble_to_fasta
+from kmerax_torch.pipeline.checkpoint import load_spectrum, save_spectrum, \
+    state_from_checkpoint
+from kmerax_torch.pipeline.correct import run_correct
+from kmerax_torch.pipeline.count import CountState, run_count
+from kmerax_torch.utils.cuda import resolve_device
+from kmerax_torch.utils.logging import get_logger
+from kmerax_torch.utils.metrics import MetricsWriter
+
+log = get_logger("kmerax_torch.twopass")
+
+
+def _marker(workdir: str, stage: str) -> str:
+    return os.path.join(workdir, f"{stage}.done")
+
+
+def _is_done(workdir: Optional[str], stage: str) -> bool:
+    return workdir is not None and os.path.exists(_marker(workdir, stage))
+
+
+def _mark_done(workdir: Optional[str], stage: str) -> None:
+    """Write the stage done-marker through a tmp file."""
+    if workdir is None:
+        return
+    tmp = _marker(workdir, stage) + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("complete\n")
+    os.replace(tmp, _marker(workdir, stage))
+
+
+def _count_stage(cfg: KmeraxConfig, paths, workdir, stage: str,
+                 m: MetricsWriter, device) -> CountState:
+    """run_count with spectrum checkpointing + resume; a resumed state has
+    its table on `device`."""
+    spec_dir = workdir and os.path.join(workdir, stage)
+    if _is_done(workdir, stage):
+        manifest, arrays = load_spectrum(spec_dir)
+        if manifest is not None:
+            log.info("%s: resumed from checkpoint", stage)
+            if "bloom_table" not in arrays:
+                raise RuntimeError(
+                    f"{stage}: checkpoint has no bloom table — resume by "
+                    "re-counting (delete the stage marker)")
+            return state_from_checkpoint(cfg, manifest, arrays, device,
+                                         host_form=True)
+    state = run_count(cfg, paths, metrics=m, device=device)
+    if workdir is not None:
+        save_spectrum(spec_dir, state, stage=stage,
+                      extra={"n_reads": state.n_reads,
+                             "n_kmers": state.n_kmers})
+        _mark_done(workdir, stage)
+    return state
+
+
+def run_two_pass(cfg: KmeraxConfig, paths, out_fastq,
+                 out_fasta: Optional[str] = None,
+                 metrics_path: Optional[str] = None,
+                 workdir: Optional[str] = None, *, device) -> dict:
+    """count(k) -> correct -> count(k2) [-> assemble] on `device` ('cuda'
+    raises without a card), checkpointed into `workdir` when given."""
+    if not cfg.k2:
+        raise ValueError("two-pass mode needs cfg.k2 set")
+    cfg.require_ported()
+    device = resolve_device(device)
+    if workdir is not None:
+        os.makedirs(workdir, exist_ok=True)
+    m = MetricsWriter(metrics_path)
+    # out_fastq may be a list (paired-end R1/R2 per-file outputs)
+    out_list = [out_fastq] if isinstance(out_fastq, str) else list(out_fastq)
+    try:
+        # pass 1: count at k, correct
+        state1 = _count_stage(cfg, paths, workdir, "count_k1", m, device)
+        if _is_done(workdir, "correct") and all(os.path.exists(p)
+                                                for p in out_list):
+            log.info("correct: resumed (output exists)")
+            stats = {"reads": state1.n_reads, "resumed": True}
+        else:
+            stats = run_correct(cfg, paths, state1, out_fastq, metrics=m,
+                                device=device)
+            _mark_done(workdir, "correct")
+        result = {"threshold_k1": state1.threshold, **stats}
+        del state1          # frees pass 1's table before pass 2 makes its own
+
+        # pass 2: count corrected reads at k2, assemble
+        cfg2 = cfg.replace(k=cfg.k2, k2=0)
+        state2 = _count_stage(cfg2, out_list, workdir, "count_k2", m, device)
+        result["threshold_k2"] = state2.threshold
+        if out_fasta is not None:
+            if _is_done(workdir, "assemble") and os.path.exists(out_fasta):
+                log.info("assemble: resumed (output exists)")
+                with open(out_fasta) as f:
+                    result["unitigs"] = sum(1 for ln in f
+                                            if ln.startswith(">"))
+            else:
+                m.stage_start("assemble")
+                n = assemble_to_fasta(cfg2, state2, out_fasta, device=device,
+                                      metrics=m)
+                m.stage_end("assemble", unitigs=n)
+                _mark_done(workdir, "assemble")
+                result["unitigs"] = n
+    finally:
+        m.close()
+    return result

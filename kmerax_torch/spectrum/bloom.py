@@ -2,8 +2,9 @@
 DESIGN.md §5).
 
 One int32 counter table of 2^log2_width counters in 128-counter block rows;
-a k-mer's d probes all fall in one block row. The port has the "hash"
-bucket scheme (DESIGN.md §5a) and i32 counters only. The table is updated
+a k-mer's d probes all fall in one block row, chosen by the "hash" bucket
+scheme (DESIGN.md §5a) or the "minimizer" one (§4). The port has i32
+counters only. The table is updated
 in place (a GPU table at real size is gigabytes; JAX's functional update
 has no counterpart the port needs). Inserts go through kernel K1
 (`bloom_kernels.bloom_insert`) and the correct round's window solidity
@@ -27,10 +28,17 @@ class BloomParams:
     k: int
     log2_width: int                 # table width = 2^log2_width counters
     num_hashes: int = 4
+    minimizer_m: int = 11
+    log2_buckets: int = 8           # 2^log2_buckets table segments
+    bucket_scheme: str = "hash"     # "hash" (DESIGN.md §5a) | "minimizer" (§4)
 
     def __post_init__(self):
         assert 7 < self.log2_width <= 31
         assert 1 <= self.num_hashes <= 4
+        assert self.bucket_scheme in ("hash", "minimizer")
+        # the hash scheme reads no bucket count (its bucket folds into h1)
+        assert self.bucket_scheme == "hash" \
+            or self.log2_buckets <= self.log2_width - 7
 
     @property
     def width(self) -> int:

@@ -1,6 +1,9 @@
 """Counting-Bloom kernels K1 (insert) and K2 (window solidity): the CUDA
 wrappers and their plain PyTorch versions (sources: csrc/bloom.cu).
 
+Both address k-mers under either bucket scheme of BloomParams (the kernels
+take `scheme_args`).
+
 K1 replaces kmerax/spectrum/pallas_bloom.py::_insert_kernel together with
 the count step's addressing: it takes the (B, L) int8 read batch and does
 extraction, canonical form, hashing, the insert, the pending rows and the
@@ -23,6 +26,7 @@ import torch
 from kmerax_torch.core.codec import canonical_words, num_words, to_u32_bits
 from kmerax_torch.core.hash import bloom_blocks_lanes
 from kmerax_torch.core.kmers import extract_kmers
+from kmerax_torch.core.minimizer import buckets
 from kmerax_torch.spectrum.exact import mask_invalid
 from kmerax_torch.utils import cuda
 
@@ -34,15 +38,34 @@ _WARPS = 8                          # reads per K1 and K2 block (csrc/bloom.cu)
 _SMEM_LIMIT = 48 * 1024             # their shared memory without opt-in
 
 
+def _scheme_buckets(params: BloomParams, canon_words: torch.Tensor):
+    """None for the hash scheme (the bucket folds into h1), else each
+    k-mer's minimizer bucket."""
+    if params.bucket_scheme == "hash":
+        return None
+    return buckets(canon_words, params.k, params.minimizer_m,
+                   1 << params.log2_buckets)
+
+
 def blocks_lanepack(params: BloomParams, canon_words: torch.Tensor):
     """(block (...) int32, lanepack (...) int32 with d 7-bit lanes packed) —
-    the kernels' addressing form (DESIGN.md §5)."""
-    block, lanes = bloom_blocks_lanes(canon_words, params.log2_width,
-                                      params.num_hashes)
+    the kernels' addressing form (DESIGN.md §5), under the params' bucket
+    scheme."""
+    block, lanes = bloom_blocks_lanes(
+        canon_words, params.log2_width, params.num_hashes,
+        _scheme_buckets(params, canon_words), params.log2_buckets)
     lp = lanes[..., 0]
     for j in range(1, params.num_hashes):
         lp = lp | (lanes[..., j] << (7 * j))
     return block, lp
+
+
+def scheme_args(params: BloomParams) -> tuple[int, int]:
+    """(minimizer_m, log2_buckets) as the kernels take them; m = 0 selects
+    the hash scheme."""
+    if params.bucket_scheme == "hash":
+        return 0, 0
+    return params.minimizer_m, params.log2_buckets
 
 
 def _lanes(lanepack: torch.Tensor, d: int) -> torch.Tensor:
@@ -132,7 +155,8 @@ def bloom_insert(table: torch.Tensor, bases: torch.Tensor,
     rc = cuda.lib().kmerax_bloom_insert(
         table.data_ptr(), bases.data_ptr(), B, L, params.k,
         (1 << (params.log2_width - 7)) - 1, params.num_hashes,
-        None if pending is None else pending.data_ptr(), off,
+        *scheme_args(params), None if pending is None else pending.data_ptr(),
+        off,
         n_valid.data_ptr(), cuda.stream())
     cuda.LAUNCHES["bloom_insert"] += 1
     cuda.check(rc, "bloom_insert")
@@ -183,7 +207,8 @@ def bloom_query_solid(table: torch.Tensor, bases: torch.Tensor,
     rc = cuda.lib().kmerax_bloom_query_solid(
         table.data_ptr(), bases.data_ptr(), B, L, params.k,
         last_j.data_ptr(), (1 << (params.log2_width - 7)) - 1,
-        params.num_hashes, int(t), out.data_ptr(), cuda.stream())
+        params.num_hashes, *scheme_args(params), int(t), out.data_ptr(),
+        cuda.stream())
     cuda.LAUNCHES["bloom_query_solid"] += 1
     cuda.check(rc, "bloom_query_solid")
     return out

@@ -3,6 +3,9 @@
 Raw canonical k-mer rows collect in a device pending buffer; the host merges
 them into the sorted spectrum (`np_merge_counted`, a numpy copy of the JAX
 package's function: it cannot be imported from there without JAX).
+`searchsorted_words` and `lookup_sorted` search the sentinel-padded sorted
+form (`HostSpectrum.to_device`) word by word, as the JAX package does, for
+`correct --use-exact`.
 
 Invalid/padding rows use an all-ones SENTINEL row, which is not a valid
 canonical k-mer (bits above 2k would be set) and sorts after every real one.
@@ -12,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from kmerax_torch.core.codec import words_less
 
 SENTINEL_WORD = 0xFFFFFFFF
 
@@ -55,3 +60,34 @@ def np_merge_counted(rows, weights):
     sw = weights[order]
     out = np.add.reduceat(sw, np.nonzero(is_start)[0])
     return srows[is_start], out
+
+
+def searchsorted_words(uniq_words: torch.Tensor, query_words: torch.Tensor):
+    """Vectorized binary search: (..., W) queries -> (idx, found).
+
+    idx is the row of the match (clipped lower-bound otherwise). Sentinel
+    padding rows compare greater than every real k-mer, so padding is inert.
+    Words are int64 in [0, 2^32) (core/codec.py): torch has no unsigned
+    64-bit order on the CPU, so rows compare word by word (words_less).
+    """
+    m = uniq_words.shape[0]
+    steps = max(1, (m - 1).bit_length())
+    shape = query_words.shape[:-1]
+    lo = torch.zeros(shape, dtype=torch.int64, device=query_words.device)
+    hi = torch.full(shape, m, dtype=torch.int64, device=query_words.device)
+    for _ in range(steps):
+        mid = (lo + hi) // 2
+        less = words_less(uniq_words[torch.clamp(mid, 0, m - 1)], query_words)
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    idx = torch.clamp(lo, 0, m - 1)
+    found = torch.all(uniq_words[idx] == query_words, dim=-1)
+    return idx, found
+
+
+def lookup_sorted(uniq_words: torch.Tensor, counts: torch.Tensor,
+                  query_words: torch.Tensor):
+    """Counts for queries against a deduped sorted spectrum: (counts,
+    found)."""
+    idx, found = searchsorted_words(uniq_words, query_words)
+    return torch.where(found, counts[idx], 0), found

@@ -4,7 +4,10 @@ imported without JAX). The port keeps the spectrum on the host: one sorted
 (N, W) uint32 array + int64 counts, accumulated by the count stage's
 pending-buffer flushes (pipeline/count.py), with the histogram for the
 solid threshold and the solid rows for assembly. Packed keys and their
-search serve the assembly joins (graph/partitioned.py).
+search serve the assembly joins (graph/partitioned.py). `padded` and
+`to_device` give the sentinel-padded form the JAX package keeps on its
+device (`CountState.exact` there): the checkpoint saves it and `correct
+--use-exact` searches it.
 
 Order contract: rows are in DESIGN.md §6 global order (little-endian words
 compared most-significant-word first), the order np_merge_counted gives.
@@ -15,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 def pack_rows(rows: np.ndarray) -> np.ndarray:
@@ -93,3 +97,28 @@ class HostSpectrum:
 
     def solid_indices(self, t: int) -> np.ndarray:
         return np.nonzero(self.counts >= t)[0]
+
+    def padded(self, capacity: int):
+        """(uniq (capacity, W) uint32 padded with SENTINEL_WORD rows, counts
+        (capacity,) int32 clipped to 2^31-1 and padded with 0, n int32
+        scalar) as numpy: the JAX package's HostSpectrum.to_device arrays."""
+        from kmerax_torch.spectrum.exact import SENTINEL_WORD
+
+        n, w = self.uniq.shape
+        if n > capacity:
+            raise ValueError(f"{n} distinct k-mers exceed capacity {capacity}")
+        uniq = np.concatenate(
+            [self.uniq, np.full((capacity - n, w), SENTINEL_WORD, np.uint32)])
+        counts = np.concatenate(
+            [np.clip(self.counts, 0, 2 ** 31 - 1).astype(np.int32),
+             np.zeros(capacity - n, np.int32)])
+        return uniq, counts, np.asarray(n, np.int32)
+
+    def to_device(self, capacity: int, device):
+        """The padded form on `device`: (uniq (capacity, W) int64 words in
+        [0, 2^32), counts (capacity,) int32, n). The words cross as their
+        32 bits and widen on the device."""
+        uniq, counts, n = self.padded(capacity)
+        words = torch.from_numpy(uniq.view(np.int32)).to(device)
+        return (words.to(torch.int64) & 0xFFFFFFFF,
+                torch.from_numpy(counts).to(device), int(n))

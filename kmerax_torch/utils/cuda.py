@@ -135,11 +135,11 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(str(so))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     L.kmerax_bloom_insert.argtypes = [
-        P, P, I, I, I, ctypes.c_uint32, I, P, I64, P, P]
+        P, P, I, I, I, ctypes.c_uint32, I, I, I, P, I64, P, P]
     L.kmerax_bloom_query_solid.argtypes = [
-        P, P, I, I, I, P, ctypes.c_uint32, I, I, P, P]
+        P, P, I, I, I, P, ctypes.c_uint32, I, I, I, I, P, P]
     L.kmerax_correct_eval_scores.argtypes = [
-        P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, P, P]
+        P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, I, I, P, P]
     L.kmerax_banded_align_scores.argtypes = [
         P, I, P, I, P, P, I64, I, I, P, P]
     for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_query_solid,

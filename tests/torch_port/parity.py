@@ -1,5 +1,9 @@
 """Shared inputs for the port's parity tests: seeded numpy data handed to
-both packages."""
+both packages, and both packages' CLIs run on the same arguments."""
+
+import contextlib
+import io
+import json
 
 import numpy as np
 import torch
@@ -48,3 +52,22 @@ def t(x) -> torch.Tensor:
 
 def n(x) -> np.ndarray:
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def run_clis(argv, device="cpu"):
+    """Run the JAX package's CLI, then the port's, on the same arguments.
+    "{pkg}" in an argument becomes "j" for the JAX run and "t" for the
+    port's, so each writes its own files; the port also gets `--device`.
+    Returns (JAX result, port result): the JSON each printed last."""
+    from kmerax.cli import main as j_main
+    from kmerax_torch.cli import main as t_main
+
+    out = []
+    for pkg, main, extra in (("j", j_main, []),
+                             ("t", t_main, ["--device", device])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main([a.replace("{pkg}", pkg) for a in argv]
+                        + extra) == 0
+        out.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+    return tuple(out)

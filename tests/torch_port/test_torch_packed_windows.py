@@ -1,7 +1,8 @@
 """A numpy emulation of how kernels K1, K2 and K3 build k-mers
 (csrc/kmerax.cuh: kmerax_pack_chunk, kmerax_window_words,
-kmerax_span_clear; K3's center OR in csrc/correct.cu) and how K2 and K3
-probe them (kmerax_probe_two_rounds), held against the JAX package's
+kmerax_span_clear; K3's center OR in csrc/correct.cu), how they address
+them under the minimizer scheme (kmerax_block) and how K2 and K3 probe
+them (kmerax_probe_two_rounds), held against the JAX package's
 extract_kmers, canonical_words and round-start window solidity
 (`_window_counts` with the Pallas probe in interpret mode) and against the
 plain K3 scores. The card is the only place the kernels run, so this
@@ -20,6 +21,7 @@ from kmerax.spectrum import bloom as jbloom
 from kmerax_torch.core.codec import canonical_words
 from kmerax_torch.ops.correct import _accept, _eval_scores
 from kmerax_torch.spectrum import bloom
+from kmerax_torch.core.hash import HASH_SEED_1, kmer_hash
 from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack
 
 from parity import n, reads_with_ns, t
@@ -103,6 +105,59 @@ def test_k1_packed_windows_match_extract_and_canonical(k):
     jc, _ = j_canonical(jnp.asarray(jw), k)
     np.testing.assert_array_equal(n(canon)[valid], np.asarray(jc)[jv])
     assert 0 < valid.sum() < valid.size          # Ns and padding present
+
+
+def mix32_u32(x):
+    """kmerax_mix32 in uint64 arrays masked to 32 bits."""
+    x = x & M32
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(0x85EBCA6B)) & M32
+    x ^= x >> np.uint64(13)
+    x = (x * np.uint64(0xC2B2AE35)) & M32
+    return x ^ (x >> np.uint64(16))
+
+
+def minimizer_block(words, k, h1, log2_width, m, log2_buckets):
+    """kmerax_block<W, true>: per m-mer j its 2m bits at p = 2(k-m-j), read
+    from the words wi = p/32 and wi+1 (0 past W) as (lo >> sb) |
+    (hi << (32-sb)) in 32 bits, then the least mix32, the bucket its low
+    log2_buckets bits above the low seg_bits of h1."""
+    W = words.shape[1]
+    best = np.full(words.shape[0], 0xFFFFFFFF, np.uint64)
+    for j in range(k - m + 1):
+        p = 2 * (k - m - j)
+        wi, sb = p >> 5, p & 31
+        lo = words[:, wi]
+        hi = words[:, wi + 1] if wi + 1 < W else np.zeros_like(lo)
+        val = lo if sb == 0 else ((lo >> np.uint64(sb))
+                                  | ((hi << np.uint64(32 - sb)) & M32))
+        best = np.minimum(best, mix32_u32(val & np.uint64((1 << 2 * m) - 1)))
+    block_mask = (1 << (log2_width - 7)) - 1
+    seg_bits = bin(block_mask).count("1") - log2_buckets
+    bucket = best & np.uint64((1 << log2_buckets) - 1)
+    return (bucket << np.uint64(seg_bits)) \
+        | (h1 & np.uint64(block_mask >> log2_buckets))
+
+
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_minimizer_block_of_packed_windows_matches_blocks_lanepack(k):
+    """K1's packed windows, canonicalized, addressed by the emulated
+    kmerax_block (m = 11 and 15, 256 buckets) equal the plain addressing
+    of the JAX package's k-mers."""
+    reads, _ = reads_with_ns(21 + k, 32, 130, k, n_rate=0.01)
+    words, valid = k1_windows(reads, k)
+    canon, _ = canonical_words(t(words.astype(np.int64)), k)
+    canon = canon[t(valid)]
+    h1 = n(kmer_hash(canon, HASH_SEED_1)).astype(np.uint64)
+    jw, jv = j_extract(jnp.asarray(reads), k)
+    jc = t(np.asarray(j_canonical(jw, k)[0])[np.asarray(jv)])
+    for m in (11, 15):
+        p = bloom.BloomParams(k, 22, 4, m, 8, "minimizer")
+        got = minimizer_block(n(canon).astype(np.uint64), k, h1, 22, m, 8)
+        want, _ = blocks_lanepack(p, jc)
+        np.testing.assert_array_equal(got.astype(np.int64),
+                                      n(want).astype(np.int64))
+        assert len(np.unique(got >> np.uint64(22 - 7 - 8))) > 50
 
 
 def probe_two_rounds(table, block, lanepack, d, t_solid):
