@@ -46,9 +46,19 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      63` held to config 3's bars, a crash after the count_k2 checkpoint
      and its resume, byte-equal, then `correct --spectrum` and `assemble
      --spectrum` on the checkpoints, byte-equal, and `correct --use-exact`.
+  7. `bench`: `bench --preset all` at run_preset's sizes (every metric
+     printed); the presets' first (B, 150) batches through K1, the correct
+     step (K2 + K3) and K4 against their plain versions, exactly; `bench
+     --preset e2e` on the int8 and the 2-bit wire (walls), and in a child
+     process each wire's copies and the count step's launches per batch
+     under the profiler; BASELINE config 2 (S. cerevisiae PE100 80x, k=25)
+     through `bench --acceptance 2 --scale 10`, held to its accuracy bars.
 
-Every failure raises. The last line is {"ok": true, "device": {...}}.
-Exits nonzero without printing a result where CUDA is absent.
+Phase 4's count profiler window runs in a child process of its own
+(`python3 chip_smoke.py --child NAME ARG`, used by the script itself), as
+does phase 7's wire profile. Each phase prints its wall, the script its
+total. Every failure raises. The last line is {"ok": true, "device":
+{...}}. Exits nonzero without printing a result where CUDA is absent.
 """
 
 from __future__ import annotations
@@ -78,7 +88,10 @@ C1_ERROR = 0.01
 C1_CFG = dict(k=31, bloom_log2_width=29, exact_capacity=1 << 27,
               batch_reads=4096, max_read_len=160)
 # config 1's peak device memory since the count step became one K1 launch
+# (int8 wire); the 2-bit wire's device unpack may add its uint8
+# temporaries, up to 4 bytes a base of one batch
 C1_PEAK_BYTES = 4_833_182_208
+C1_UNPACK_BYTES = 4 * 4096 * 160
 # BASELINE config 3 (acceptance.py CONFIGS[3]) on a 3,000,000 bp genome
 # (chr21 is 46,709,983 bp; the CPU record ACCEPTANCE_full_c3.json has
 # 6,000,000, at which the six phases took 1,206.4 s on an H100 80GB HBM3
@@ -1151,9 +1164,11 @@ def _profile_window(fn, batches, names):
 
 def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
                   n_window: int = 20):
-    """The count stage's device steps on every batch of `paths`, each
-    synchronised and timed on the host clock (the parse runs in its thread
-    and is not in the time), then one profiler window of `n_window` count
+    """The count stage's device steps on every batch of `paths`, on the
+    config's wire as run_count sends them (the unpack on the 2-bit wire,
+    then K1), each synchronised and timed on the host clock (the parse and
+    the H2D copy are not in the time; K1's share is timed after a sync
+    that ends the unpack), then one profiler window of `n_window` count
     batches and one of `n_window` correct batches against the finished
     table. Returns (params, table, the arguments of the first correct
     batch's first K3 call, those of its first K2 call)."""
@@ -1164,7 +1179,7 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
     from kmerax_torch.ops.correct import correct_batch
     from kmerax_torch.ops.correct_kernels import make_eval_fn, \
         make_window_fn
-    from kmerax_torch.pipeline.count import _count_steps, to_device_batch
+    from kmerax_torch.pipeline.count import _count_steps, send_batch, unwire
     from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import bloom_insert
     from kmerax_torch.spectrum.exact import sentinel_rows
@@ -1173,20 +1188,29 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
     params, _, P, pend_rows = _count_steps(cfg, cfg.k)
     table = make_table(params, DEVICE)
     pending = sentinel_rows(P, num_words(cfg.k), DEVICE)
-    off, keep, secs = 0, [], []
+    off, keep, secs, k1, n_packed = 0, [], [], [], 0
     for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
-        bases, lengths = to_device_batch(batch, DEVICE)
+        rows, lengths, packed = send_batch(batch, DEVICE, cfg.wire_pack)
+        n_packed += packed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        bases = unwire(rows, lengths, packed, cfg.max_read_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         bloom_insert(table, bases, params, pending, off)
         torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+        t2 = time.perf_counter()
+        secs.append(t2 - t0)
+        k1.append(t2 - t1)
         off = (off + pend_rows) % P
         if len(keep) < n_window:
             keep.append((bases, lengths))
-    num(f"{tag} count device step, synchronised: {len(secs)} batches, "
-        f"median {statistics.median(secs) * 1e3:.4f} ms, mean "
-        f"{statistics.mean(secs) * 1e3:.4f} ms, total {sum(secs):.4f} s")
+    num(f"{tag} count device step, synchronised, wire_pack="
+        f"{cfg.wire_pack} ({n_packed} of {len(secs)} batches packed): "
+        f"median {statistics.median(secs) * 1e3:.4f} ms (unpack + K1), "
+        f"mean {statistics.mean(secs) * 1e3:.4f} ms, total "
+        f"{sum(secs):.4f} s; K1 alone median "
+        f"{statistics.median(k1) * 1e3:.4f} ms")
 
     t = threshold
     ev = make_eval_fn(params, table, t)
@@ -1210,12 +1234,17 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
                       eval_fn=eval_fn, window_fn=window_fn)
 
     correct(*keep[0])             # warm-up; records the K2 and K3 calls
-    for stage, fn, names in (
-            ("count", lambda b, _: bloom_insert(table, b, params, pending, 0),
-             ("bloom_insert_kernel",)),
-            ("correct", correct, ("bloom_query_solid_kernel",
-                                  "correct_eval_scores_kernel"))):
-        wall, dev, by, n_k = _profile_window(fn, keep, names)
+    # the count window in a child process of its own: in this process,
+    # after the script's many profiler sessions, it recorded 6-18 of its
+    # ~40 kernels
+    cw = _child("count_window", {"paths": list(paths), "cfg": cfg_kw,
+                                 "n": n_window})
+    windows = [(f"count (child process, {cw['packed']} packed)",
+                (cw["wall"], cw["device"], cw["by"], cw["kernels"]))]
+    windows.append(("correct", _profile_window(
+        correct, keep, ("bloom_query_solid_kernel",
+                        "correct_eval_scores_kernel"))))
+    for stage, (wall, dev, by, n_k) in windows:
         if dev is None:
             num(f"{tag} profiler, {len(keep)} {stage} batches: wall "
                 f"{wall:.4f} s; the profiler showed no device time")
@@ -1262,9 +1291,9 @@ def phase_config1(workdir: str, recs=None,
     num(f"phase4 end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     num(f"phase4 kernel launches on the main path: {launches}")
-    if torch.cuda.max_memory_allocated() > C1_PEAK_BYTES:
+    if torch.cuda.max_memory_allocated() > C1_PEAK_BYTES + C1_UNPACK_BYTES:
         raise AssertionError("config 1 peak device memory above "
-                             f"{C1_PEAK_BYTES} bytes")
+                             f"{C1_PEAK_BYTES} + {C1_UNPACK_BYTES} bytes")
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
@@ -1434,7 +1463,8 @@ def phase_config5(workdir: str):
     paths, noisy, truth, seq_off = simulate_pairs(workdir, C5_GENOME,
                                                   C5_COVERAGE, C5_ERROR)
     n_reads = sum(len(b) for b in noisy)
-    n_batches = sum(-(-len(b) // C5_CFG["batch_reads"]) for b in noisy)
+    # a count pass streams both files as one sequence of batches
+    n_batches = -(-n_reads // C5_CFG["batch_reads"])
     num(f"phase6 simulated {n_reads} reads (PE{READ_LEN}, genome "
         f"{C5_GENOME} bp, {C5_COVERAGE}x, error {C5_ERROR}) in "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -1562,7 +1592,354 @@ def phase_config5(workdir: str):
         f"{n_reads / xwall:.1f} reads/s, peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes, {xstats}")
     _bars("phase6 (c) --use-exact", x_fq, noisy, truth, seq_off)
-    num(f"phase6 wall {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+# ---------------------------------------------------------------- phase 7
+
+# run_preset's sizes (kmerax/bench/runners.py): count and align 16,384
+# reads, correct min(16,384, 8,192), e2e 65,536 (fixed); reads of 150
+BENCH_READS = 16384
+BENCH_CORRECT_READS = 8192
+E2E_READS = 65536
+# BASELINE config 2 (acceptance.py CONFIGS[2], S. cerevisiae PE100 80x,
+# k=25) at --scale 10: a 600,000 bp genome, 480,000 reads; acceptance.py's
+# rule gives distinct = 12,600,000, a 2^27-counter Bloom table (512 MiB)
+# and exact_capacity 2^25. (--scale 20, 960,000 reads, took 162 s of a
+# call whose seven phases projected past 1,200 s on a slow host.)
+C2_SCALE = "10"
+C2_FULL_GENOME = 12_157_105
+
+
+def _child(name: str, arg) -> dict:
+    """Run `_CHILDREN[name](arg)` in a child process of its own (a fresh
+    CUDA context and profiler); returns the JSON of its last line."""
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--child", name,
+         json.dumps(arg)], capture_output=True, text=True, timeout=900,
+        cwd=ROOT)
+    if res.returncode != 0:
+        raise AssertionError(f"child {name} failed ({res.returncode}):\n"
+                             + res.stderr[-6000:])
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _child_count_window(arg) -> dict:
+    """The profiler window of phase 4's count step on the first `n` batches
+    of `paths` as run_count sends them (on the config's wire: the unpack
+    on the 2-bit wire, then one K1 launch), in this process alone."""
+    import torch
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.core.codec import num_words
+    from kmerax_torch.io.batcher import BackgroundBatcher
+    from kmerax_torch.pipeline.count import _count_steps, send_batch, unwire
+    from kmerax_torch.spectrum.bloom import make_table
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert
+    from kmerax_torch.spectrum.exact import sentinel_rows
+
+    cfg = KmeraxConfig(**arg["cfg"])
+    params, _, P, _ = _count_steps(cfg, cfg.k)
+    table = make_table(params, DEVICE)
+    pending = sentinel_rows(P, num_words(cfg.k), DEVICE)
+    keep = []
+    for batch in BackgroundBatcher(arg["paths"], cfg.batch_reads,
+                                   cfg.max_read_len):
+        keep.append(send_batch(batch, DEVICE, cfg.wire_pack))
+        if len(keep) == arg["n"]:
+            break
+
+    def step(rows, lengths, packed):
+        bloom_insert(table, unwire(rows, lengths, packed, cfg.max_read_len),
+                     params, pending, 0)
+    step(*keep[0])                                             # warm-up
+    torch.cuda.synchronize()
+    wall, dev, by, n_k = _profile_window(step, keep, ("bloom_insert_kernel",))
+    return {"batches": len(keep), "packed": sum(p for _, _, p in keep),
+            "wall": wall, "device": dev, "by": by, "kernels": n_k}
+
+
+def _trace_stats(prof) -> dict:
+    """Device events of a profiler session, from its chrome trace: kernel
+    launches by name, and copies by (direction, bytes) with their count
+    and device microseconds."""
+    kernels, copies = {}, {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        name = ev.get("name", "")
+        if name.startswith("Memcpy"):
+            d = "HtoD" if "HtoD" in name else "DtoH" if "DtoH" in name \
+                else "DtoD"
+            key = f"{d} {(ev.get('args') or {}).get('bytes')}"
+            n, us = copies.get(key, (0, 0.0))
+            copies[key] = (n + 1, us + float(ev.get("dur", 0)))
+        elif ev.get("cat") == "kernel":
+            short = name.split("(")[0][-60:]
+            kernels[short] = kernels.get(short, 0) + 1
+    return {"kernels": kernels,
+            "copies": {k: {"n": n, "us": us} for k, (n, us)
+                       in sorted(copies.items())}}
+
+
+def _child_wire(arg) -> dict:
+    """`bench --preset e2e` at its size on each wire, each stage under its
+    own profiler session: the stage's copies and kernels (_trace_stats)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import kmerax_torch.pipeline.correct as correct
+    import kmerax_torch.pipeline.count as count
+    from kmerax_torch.bench import runners
+    from kmerax_torch.config import KmeraxConfig
+
+    # warm-up: the stages' first launches in this process (lazy module
+    # loading) and the profiler's first session (CUPTI's start) are not
+    # the wire's
+    runners.bench_e2e(KmeraxConfig(), n_reads=8192, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    out = {}
+    for wire in ("packed", "int8"):
+        stages = {}
+        real = {(count, "run_count"): count.run_count,
+                (correct, "run_correct"): correct.run_correct}
+
+        def profiled(fn, name):
+            def run(*a, **kw):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    r = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                stages[name] = _trace_stats(prof)
+                return r
+            return run
+        try:
+            for (mod, name), fn in real.items():
+                setattr(mod, name, profiled(fn, name))
+            res = runners.bench_e2e(KmeraxConfig(wire_pack=wire == "packed"),
+                                    device=DEVICE)
+        finally:
+            for (mod, name), fn in real.items():
+                setattr(mod, name, fn)
+        out[wire] = {"stages": stages, "count_wall_s": res["count_wall_s"],
+                     "correct_wall_s": res["correct_wall_s"]}
+    return out
+
+
+_CHILDREN = {"count_window": _child_count_window, "wire": _child_wire}
+
+
+def _say_wire(prof: dict, n_batches: int, B: int, L: int) -> None:
+    """The wire's copies per batch and the count step's launches per
+    batch, from each wire's profiled e2e stages (`_child_wire`)."""
+    cols = (L + 3) // 4
+    for wire, rec in prof.items():
+        for stage, st in rec["stages"].items():
+            per = {d: sum(c["us"] for k, c in st["copies"].items()
+                          if k.startswith(d)) / n_batches * 1e-3
+                   for d in ("HtoD", "DtoH")}
+            rows = {f"HtoD {B * L}": "int8 rows H2D",
+                    f"HtoD {B * cols}": "packed rows H2D",
+                    f"DtoH {B * L}": "int8 rows D2H",
+                    f"DtoH {B * cols}": "packed rows D2H"}
+            seen = ", ".join(
+                f"{name} {c['n']} x {c['us'] / c['n'] * 1e-3:.4f} ms"
+                for k, name in rows.items() if (c := st["copies"].get(k)))
+            n_k = sum(st["kernels"].values())
+            num(f"phase7 wire {wire}, {stage} ({n_batches} batches of "
+                f"{B} x {L}): H2D {per['HtoD']:.4f} ms and D2H "
+                f"{per['DtoH']:.4f} ms of copies a batch (device time, all "
+                f"copies); {seen}; {n_k} kernels, {n_k / n_batches:.2f} a "
+                f"batch")
+            say(f"phase7 wire {wire}, {stage}: copies {st['copies']}; "
+                f"kernels {st['kernels']}")
+        num(f"phase7 wire {wire}: profiled e2e walls count "
+            f"{rec['count_wall_s']:.3f} s, correct {rec['correct_wall_s']:.3f}"
+            f" s")
+
+
+def _bench_first_batches(device) -> dict:
+    """The presets' first batches at (B, 150) on the card, each kernel path
+    against its plain version, exactly: K1's table and valid count (count
+    preset), the correct step's rows and n_edits (K2 + K3, correct preset)
+    and K4's scores (align preset, its first call in validate_batch).
+    Returns each kernel's max_abs_err."""
+    import torch
+    import kmerax_torch.ops.align as align
+    from kmerax_torch.bench import runners
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.ops.align_kernels import banded_align_scores, \
+        banded_align_scores_plain
+    from kmerax_torch.ops.correct import _accept, correct_batch
+    from kmerax_torch.ops.correct_kernels import eval_scores_plain
+    from kmerax_torch.pipeline.correct import make_correct_step
+    from kmerax_torch.spectrum.bloom import make_table
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
+        bloom_insert_plain, bloom_query_solid_plain
+
+    cfg = KmeraxConfig()              # the CLI's defaults, as `bench` runs
+    err = {}
+    params, batches = runners.count_setup(cfg, BENCH_READS, READ_LEN, device)
+    tk, tp = make_table(params, device), make_table(params, device)
+    nk = bloom_insert(tk, batches[0], params)
+    np_ = bloom_insert_plain(tp, batches[0], params)
+    torch.cuda.synchronize()
+    err["bloom_insert"] = max(int((tk - tp).abs().max()),
+                              abs(int(nk) - int(np_)))
+    if err["bloom_insert"] or int(nk) != BENCH_READS * (READ_LEN - cfg.k + 1):
+        raise AssertionError(f"K1 differs from plain on the count preset's "
+                             f"batch 0 ({err['bloom_insert']}, {int(nk)})")
+    num(f"phase7 K1 == plain on the count preset's batch 0: "
+        f"{tuple(batches[0].shape)} int8 into 2^{params.log2_width} "
+        f"counters, table bytes and {int(nk)} valid k-mers equal")
+    del batches, tk, tp
+
+    params, table, batches, lengths = runners.correct_setup(
+        cfg, BENCH_CORRECT_READS, READ_LEN, device)
+    t = 3
+    kw = dict(rounds=cfg.rounds, max_runs=cfg.max_runs,
+              max_edits=cfg.max_edits)
+    fk, nek = make_correct_step(params, table, t, **kw)(batches[0], lengths)
+
+    def window_fn(bases, last_j):
+        solid = bloom_query_solid_plain(table, bases, last_j, params, t)
+        j = torch.arange(solid.shape[1], dtype=torch.int32, device=device)
+        return solid, j[None, :] <= last_j[:, None]
+
+    def eval_fn(bases, lens, last_j, ent_r, ent_i):
+        return _accept(eval_scores_plain(params, table, t, bases, lens,
+                                         last_j, ent_r.to(torch.int32),
+                                         ent_i.to(torch.int32)),
+                       bases, ent_r, ent_i)
+    fp, nep = correct_batch(batches[0], lengths, cfg.k, t, None,
+                            eval_fn=eval_fn, window_fn=window_fn, **kw)
+    torch.cuda.synchronize()
+    e = max(int((fk.to(torch.int32) - fp).abs().max()),
+            int((nek - nep).abs().max()))
+    err["bloom_query_solid"] = err["correct_eval_scores"] = e
+    if e or int(nek.sum()) == 0:
+        raise AssertionError(f"the correct step (K2 + K3) differs from its "
+                             f"plain version on the correct preset's batch "
+                             f"0 ({e}, {int(nek.sum())} edits)")
+    num(f"phase7 correct step (K2 + K3) == plain on the correct preset's "
+        f"batch 0: {tuple(batches[0].shape)} at t={t}, corrected rows and "
+        f"n_edits equal, {int(nek.sum())} edits in "
+        f"{int((nek > 0).sum())} reads")
+    del batches, table
+
+    cat_dev, index, batches, lengths = runners.align_setup(
+        cfg, BENCH_READS, READ_LEN, device)
+    calls = []
+
+    def spy(*a):
+        calls.append(a)
+        return banded_align_scores(*a)
+    align.banded_align_scores = spy
+    try:
+        found = align.validate_batch(cat_dev, index, batches[0], lengths,
+                                     cfg.k, cfg.band)[0]
+    finally:
+        align.banded_align_scores = banded_align_scores
+    args = calls[0]
+    sk = banded_align_scores(*args)
+    sp = banded_align_scores_plain(*args)
+    torch.cuda.synchronize()
+    err["banded_align_scores"] = int((sk.to(torch.int64)
+                                      - sp.to(torch.int64)).abs().max())
+    if err["banded_align_scores"] or int((sk > 0).sum()) == 0:
+        raise AssertionError("K4 differs from plain on the align preset's "
+                             "batch 0")
+    num(f"phase7 K4 == plain on the align preset's batch 0: "
+        f"{tuple(args[0].shape)} at band {args[4]}, {int(found.sum())} reads "
+        f"found, {int((sk > 0).sum())} positive scores equal")
+    return err
+
+
+def phase_bench(workdir: str, recs=None):
+    """`bench` on the card: (1) `bench --preset all` at run_preset's sizes
+    through the CLI (the launches counted); (2) the presets' first batches
+    against the plain versions (`_bench_first_batches`); (3) the wire:
+    `bench --preset e2e` with `--no-wire-pack`, then again on the 2-bit
+    wire, and in a child process each wire's profiled e2e for its copies
+    and the count step's launches per batch; (4) BASELINE config 2 through
+    `bench --acceptance 2 --scale 10`, held to its accuracy bars. Returns
+    the launches of (1) and (4)."""
+    import torch
+    from kmerax_torch.utils import cuda
+
+    runs = {}
+    cuda.reset_launches()
+    res, wall = _cli("phase7", workdir, [
+        "bench", "--preset", "all", "--reads", str(BENCH_READS), "--device",
+        DEVICE])
+    runs["bench_presets"] = dict(cuda.LAUNCHES)
+    for preset, r in res.items():
+        num(f"phase7 bench {preset}: {r}")
+    num(f"phase7 bench --preset all: {wall:.2f} s; launches "
+        f"{runs['bench_presets']}")
+    for name, n in runs["bench_presets"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched by bench")
+
+    err = _bench_first_batches(DEVICE)
+    if recs is not None:
+        for r in recs:
+            if r["scheme"] == "hash":
+                r["max_abs_err"] = max(r["max_abs_err"], err[r["name"]])
+
+    walls = {"packed": [res["e2e"]]}
+    for wire, extra in (("int8", ["--no-wire-pack"]), ("packed", [])):
+        r, _ = _cli("phase7", workdir, ["bench", "--preset", "e2e",
+                                        "--device", DEVICE, *extra])
+        walls.setdefault(wire, []).append(r)
+    for wire, rs in walls.items():
+        num(f"phase7 bench e2e on the {wire} wire: " + "; ".join(
+            f"count {r['count_wall_s']:.3f} s, correct "
+            f"{r['correct_wall_s']:.3f} s, {r['value']:.1f} reads/s"
+            for r in rs))
+    from kmerax_torch.config import KmeraxConfig
+
+    dflt = KmeraxConfig()         # the CLI's defaults, as `bench` runs
+    _say_wire(_child("wire", {}), -(-E2E_READS // dflt.batch_reads),
+              dflt.batch_reads, dflt.max_read_len)
+
+    say(f"phase7 CUT: config 2 at --scale {C2_SCALE}: genome "
+        f"{int(60_000 * float(C2_SCALE))} bp, not S. cerevisiae's "
+        f"{C2_FULL_GENOME} bp")
+    cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rep, wall = _cli("phase7", workdir, [
+        "bench", "--acceptance", "2", "--scale", C2_SCALE, "--device",
+        DEVICE])
+    runs["config2_acceptance"] = dict(cuda.LAUNCHES)
+    try:
+        st = _stages(os.path.join(rep["workdir"], "metrics.jsonl"))
+    finally:
+        shutil.rmtree(rep["workdir"], ignore_errors=True)
+    cnt, cor = st["count"][0], st["correct"][0]
+    acc = rep["accuracy"]
+    num(f"phase7 config 2: {rep['reads']} reads (PE100, genome "
+        f"{rep['genome_len']} bp, 80x, k=25), threshold {rep['threshold']}; "
+        f"count {cnt['wall_s']} s ({cnt['kmers'] / cnt['wall_s']:.1f} "
+        f"k-mers/s), correct {cor['wall_s']} s "
+        f"({cor['reads'] / cor['wall_s']:.1f} reads/s); run_config wall "
+        f"{rep['wall_s']:.2f} s (stages), {wall:.2f} s with the simulation "
+        f"and the accuracy count; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes; launches "
+        f"{runs['config2_acceptance']}")
+    num(f"phase7 config 2 accuracy: {acc}")
+    if acc["errors_introduced"] > 0.001 * acc["errors_before"]:
+        raise AssertionError(f"config 2: {acc['errors_introduced']} "
+                             f"introduced > 0.001 x {acc['errors_before']}")
+    if acc["gain"] < 0.9:
+        raise AssertionError(f"config 2: gain {acc['gain']} < 0.9")
+    for name in MAIN_PATH_KERNELS:
+        if runs["config2_acceptance"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched by config 2")
     return runs
 
 
@@ -1574,17 +1951,27 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    if sys.argv[1:2] == ["--child"]:          # _child: one JSON line
+        print(json.dumps(_CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))))
+        return 0
     t_start = time.perf_counter()
+    t0 = t_start
     phase_toolchain()
     recs = phase_kernels()
+    num(f"phase1-2 wall {time.perf_counter() - t0:.1f} s")
     paths = {}                       # path -> its own run's launches
-    for phase in (phase_golden, functools.partial(phase_config1, recs=recs),
-                  phase_config3, phase_config5):
+    for i, phase in enumerate((phase_golden,
+                               functools.partial(phase_config1, recs=recs),
+                               phase_config3, phase_config5,
+                               functools.partial(phase_bench, recs=recs)),
+                              start=3):
         workdir = tempfile.mkdtemp(prefix="kmerax_smoke_")
+        t0 = time.perf_counter()
         try:
             paths.update(phase(workdir) or {})
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+        num(f"phase{i} wall {time.perf_counter() - t0:.1f} s")
     for r in recs:
         # a path whose name says "minimizer" ran under that scheme only
         by_path = {p: n[r["name"]] for p, n in paths.items()

@@ -1,5 +1,6 @@
 """kmerax_torch command line: the single-device subcommands of
-kmerax/cli.py (all but `bench`) on one device.
+kmerax/cli.py on one device, `bench` included (its presets and acceptance
+configs; the multi-host `--scaling` is not ported).
 
     python -m kmerax_torch.cli count --in R1.fq R2.fq --out spec/ -k 31
     python -m kmerax_torch.cli correct --in R1.fq R2.fq --out c1.fq c2.fq \\
@@ -9,6 +10,8 @@ kmerax/cli.py (all but `bench`) on one device.
         --out-fastq c1.fq c2.fq --out-fasta contigs.fa [--validate | --k2 63]
     python -m kmerax_torch.cli align --in c1.fq c2.fq \\
         --contigs contigs.fa --out aln.tsv -k 31
+    python -m kmerax_torch.cli bench --preset {count,correct,align,e2e,all}
+    python -m kmerax_torch.cli bench --acceptance 2 --scale 10
 
 Config precedence: defaults < --config TOML < explicit flags. `--device
 cuda` (the default) raises where CUDA is absent; `--device cpu` runs the
@@ -30,7 +33,7 @@ log = get_logger("kmerax_torch.cli")
 
 # flags of the JAX CLI whose paths the port does not have yet
 _UNPORTED = ("mesh_data", "mesh_bucket", "coordinator", "num_procs",
-             "process_id")
+             "process_id", "scaling", "hosts")
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -44,9 +47,16 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--exact-capacity", type=int, default=None)
     p.add_argument("--no-exact", action="store_true",
                    help="skip the exact spectrum (needs --threshold)")
+    p.add_argument("--shard-host-spectrum", action="store_true",
+                   help="force the key-range-sharded exact spectrum "
+                        "(~1/P resident rows per host; k <= 63) — already "
+                        "the DEFAULT on multi-host runs")
+    p.add_argument("--no-shard-host-spectrum", action="store_true",
+                   help="force full spectrum replication onto every host "
+                        "(small-run fast path)")
     p.add_argument("--no-wire-pack", action="store_true",
-                   help="accepted for compatibility: batches always cross "
-                        "as int8 (the 2-bit wire is not ported)")
+                   help="disable the 2-bit host<->device wire (io/wire.py)"
+                        " — every batch uses the int8 wire")
     p.add_argument("--metrics", default=None, help="metrics.jsonl path")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; raises without a "
@@ -65,6 +75,10 @@ def _cfg(args) -> KmeraxConfig:
         bloom_log2_width=args.bloom_log2_width,
         exact_capacity=args.exact_capacity,
         exact_spectrum=False if args.no_exact else None,
+        shard_host_spectrum=(True if args.shard_host_spectrum else
+                             False if args.no_shard_host_spectrum else
+                             None),
+        wire_pack=False if args.no_wire_pack else None,
     )
 
 
@@ -117,10 +131,26 @@ def main(argv=None) -> int:
     p.add_argument("--k2", type=int, default=None,
                    help="second-pass k for correct+assemble (BASELINE "
                         "config 5)")
+
+    p = sub.add_parser("bench", help="run the benchmark harness")
+    _add_common(p)
+    p.add_argument("--preset", default="count",
+                   choices=["count", "correct", "align", "e2e", "all"])
+    p.add_argument("--reads", type=int, default=20000)
+    p.add_argument("--acceptance", type=int, default=None, metavar="N",
+                   help="run BASELINE.md acceptance config N (1-5) "
+                        "end-to-end on simulated data")
+    p.add_argument("--scale", default="1.0",
+                   help="genome scale factor for --acceptance, or 'full' "
+                        "for the real dataset size (config 1 = 4.6Mb)")
+    p.add_argument("--scaling", action="store_true",
+                   help="multi-host weak-scaling efficiency: not yet ported")
+    p.add_argument("--hosts", type=int, nargs="+", default=None,
+                   help="host counts for --scaling: not yet ported")
     args = ap.parse_args(argv)
 
     used = [f"--{n.replace('_', '-')}" for n in _UNPORTED
-            if getattr(args, n) not in (None, False)]
+            if getattr(args, n, None) not in (None, False)]
     if used:
         raise NotImplementedError(
             f"not yet ported to kmerax_torch: {', '.join(used)}")
@@ -133,6 +163,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     if args.cmd == "pipeline":
         result = _pipeline(args, cfg, device)
+    elif args.cmd == "bench":
+        result = _bench(args, cfg, device)
     else:
         m = MetricsWriter(args.metrics)
         try:
@@ -189,6 +221,18 @@ def _pipeline(args, cfg: KmeraxConfig, device) -> dict:
     return run_pipeline(cfg, args.inputs, out_fq, args.out_fasta,
                         metrics_path=args.metrics, validate=args.validate,
                         device=device)
+
+
+def _bench(args, cfg: KmeraxConfig, device) -> dict:
+    """An acceptance config (which sizes its own config, as in the JAX
+    package) or a benchmark preset on the CLI's config."""
+    if args.acceptance is not None:
+        from kmerax_torch.bench.acceptance import run_config
+
+        return run_config(args.acceptance, scale=args.scale, device=device)
+    from kmerax_torch.bench.runners import run_preset
+
+    return run_preset(args.preset, cfg, n_reads=args.reads, device=device)
 
 
 def _load_or_count(cfg: KmeraxConfig, args, m, device):

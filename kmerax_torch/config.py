@@ -34,7 +34,8 @@ class KmeraxConfig:
     # exact spectrum (DESIGN.md §6): needed for auto-threshold + assembly
     exact_spectrum: bool = True
     exact_capacity: int = 1 << 22     # sizes the pending raw-row buffer
-    # multi-host key-range sharding of the exact spectrum (not yet ported)
+    # multi-host key-range sharding of the exact spectrum: in one process
+    # it only reaches the checkpoint manifest, as in the JAX package
     shard_host_spectrum: Optional[bool] = None
 
     # solid threshold (DESIGN.md §7); None = auto from histogram valley
@@ -52,8 +53,8 @@ class KmeraxConfig:
     batch_reads: int = 4096
     max_read_len: int = 160
     per_host_io: bool = True
-    # 2-bit host<->device wire: not ported; batches cross as int8 and the
-    # output bytes are identical either way (DESIGN.md §11b)
+    # 2-bit host<->device wire for N-free batches (io/wire.py); the output
+    # bytes are identical either way (DESIGN.md §11b)
     wire_pack: bool = True
 
     # mesh (DESIGN.md §12): not yet ported, must stay 1 x 1

@@ -39,6 +39,19 @@ def bases_to_seq_bytes(bases: np.ndarray) -> np.ndarray:
     return _BASE_CHR[np.minimum(bases, 4)]
 
 
+def seq_to_bases(seq: str | bytes) -> np.ndarray:
+    """Host-side: ASCII sequence -> uint8 base codes (DESIGN.md §1)."""
+    if isinstance(seq, str):
+        seq = seq.encode("ascii")
+    return _LUT[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def bases_to_seq(bases: np.ndarray) -> str:
+    """Host-side: uint8 base codes -> ASCII str (4 -> 'N')."""
+    return bases_to_seq_bytes(np.asarray(bases, dtype=np.uint8)) \
+        .tobytes().decode("ascii")
+
+
 def to_u32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 tensor with the same 32 bits
     (numpy `.view(np.uint32)` on the host recovers the unsigned value)."""

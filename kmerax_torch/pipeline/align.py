@@ -59,7 +59,7 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
     with open(out_tsv, "w") if out_tsv else contextlib.nullcontext() as tsv:
         for batch in BackgroundBatcher(paths, cfg.batch_reads,
                                        cfg.max_read_len):
-            bases, lengths = to_device_batch(batch, device)
+            bases, lengths, _ = to_device_batch(batch, device)
             found, strand, pos, score = (
                 x[:batch.n].cpu().numpy() for x in
                 validate_batch(cat_dev, index, bases, lengths, k, band))

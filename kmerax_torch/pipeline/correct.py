@@ -3,8 +3,11 @@ run_correct, single process).
 
 Each batch runs ops/correct.py::correct_batch against the count table: the
 round-start solidity through kernel K2 and the candidate scoring through
-kernel K3 on the card (their plain versions on the CPU). Corrected reads
-are written with names and qualities byte-identical (DESIGN.md §11).
+kernel K3 on the card (their plain versions on the CPU). With
+`cfg.wire_pack`, an N-free batch crosses on the 2-bit wire both ways
+(io/wire.py): unpacked on the device before the step, its corrected rows
+packed there and unpacked on the host. Corrected reads are written with
+names and qualities byte-identical (DESIGN.md §11).
 
 `use_exact` corrects against the exact spectrum instead (`correct
 --use-exact`; kmerax/pipeline/run.py::run_correct): solidity is a binary
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 
 from kmerax_torch.config import KmeraxConfig
+from kmerax_torch.io import wire
 from kmerax_torch.io.batcher import BackgroundBatcher
 from kmerax_torch.io.fastq import FastqWriter
 from kmerax_torch.ops.correct import correct_batch
@@ -102,8 +106,10 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
             def flush(pend):
                 """Read back + write one completed batch."""
                 nonlocal n_reads, n_edited, n_edits
-                batch, fixed, ne = pend
+                batch, fixed, ne, packed = pend
                 fixed, ne = fixed.cpu().numpy(), ne.cpu().numpy()
+                if packed:
+                    fixed = wire.unpack2_host(fixed, cfg.max_read_len)
                 for i in range(batch.n):
                     out.write_record(batch.records[i],
                                      fixed[i, :batch.lengths[i]])
@@ -117,10 +123,14 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
             pend = None
             for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
                                            cfg.max_read_len):
-                fixed, ne = step(*to_device_batch(batch, device))
+                bases, lengths, packed = to_device_batch(batch, device,
+                                                         cfg.wire_pack)
+                fixed, ne = step(bases, lengths)
+                if packed:          # the D2H leg on the 2-bit wire too
+                    fixed = wire.pack2_dev(fixed)
                 if pend is not None:
                     flush(pend)
-                pend = (batch, fixed, ne)
+                pend = (batch, fixed, ne, packed)
             if pend is not None:
                 flush(pend)
     stats = {"reads": n_reads, "edited_reads": n_edited, "edits": n_edits}

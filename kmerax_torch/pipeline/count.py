@@ -1,7 +1,9 @@
 """Count stage (port of kmerax/pipeline/run.py::run_count, single device).
 
-Per batch: one call of kernel K1 on the read batch as it crossed to the
-device, which extracts the k-mers, canonicalizes and hashes them, inserts
+Per batch: the read batch crosses to the device (on the 2-bit wire when
+`cfg.wire_pack` is set and the batch is N-free, then unpacked there to the
+int8 rows; else as int8), then one call of kernel K1 on it, which
+extracts the k-mers, canonicalizes and hashes them, inserts
 them into the Bloom table and appends their raw canonical rows to a device
 pending buffer (on the CPU its plain version runs the same steps in
 torch). When the buffer fills, and once at the end, the host merges it into
@@ -23,6 +25,7 @@ import torch
 
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.core.codec import num_words
+from kmerax_torch.io import wire
 from kmerax_torch.io.batcher import BackgroundBatcher
 from kmerax_torch.spectrum.bloom import BloomParams, make_table
 from kmerax_torch.spectrum.bloom_kernels import bloom_insert
@@ -67,12 +70,30 @@ def bloom_params(cfg: KmeraxConfig, k: int) -> BloomParams:
                        cfg.bucket_scheme)
 
 
-def to_device_batch(batch, device):
-    """A host ReadBatch -> (int8 bases (B, L), int32 lengths (B,)) on the
-    device; bases cross as int8, 4x fewer bytes than int32."""
-    bases = torch.from_numpy(batch.bases.astype(np.int8)).to(device)
+def send_batch(batch, device, pack: bool = False):
+    """The H2D leg of a host ReadBatch -> (rows, int32 lengths (B,),
+    packed) on the device. With `pack`, an N-free batch crosses on the 2-bit
+    wire (rows (B, ceil(L/4)) uint8, io/wire.py) and `packed` is True;
+    otherwise the rows are the (B, L) int8 bases."""
     lengths = torch.from_numpy(batch.lengths).to(device)
-    return bases, lengths
+    if pack and not wire.batch_has_n(batch.bases, batch.lengths):
+        return (torch.from_numpy(wire.pack2_host(batch.bases)).to(device),
+                lengths, True)
+    return (torch.from_numpy(batch.bases.astype(np.int8)).to(device),
+            lengths, False)
+
+
+def unwire(rows, lengths, packed: bool, L: int):
+    """The device leg: send_batch's rows -> (B, L) int8 bases."""
+    return wire.unpack2_dev(rows, lengths, L) if packed else rows
+
+
+def to_device_batch(batch, device, pack: bool = False):
+    """A host ReadBatch -> (int8 bases (B, L), int32 lengths (B,), packed)
+    on the device: send_batch, then the unpack on the 2-bit wire."""
+    rows, lengths, packed = send_batch(batch, device, pack)
+    return (unwire(rows, lengths, packed, batch.bases.shape[1]), lengths,
+            packed)
 
 
 def _count_steps(cfg: KmeraxConfig, k: int):
@@ -121,7 +142,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     n_kmers = torch.zeros((), dtype=torch.int64, device=device)
     m.stage_start("count")
     for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
-        bases, _ = to_device_batch(batch, device)
+        bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
         n_kmers += bloom_insert(table, bases, params, pending, off)
         if pending is not None:
             off += pend_rows

@@ -52,6 +52,22 @@ def resolve_device(name: str | torch.device) -> torch.device:
     return dev
 
 
+def device_info(device: torch.device) -> dict:
+    """{"name", "power_limit"} of the device a run measured: on a card, as
+    `nvidia-smi --query-gpu=name,power.limit` gives them; "cpu" on the
+    CPU."""
+    if device.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    name, limit = (s.strip() for s in out.rsplit(",", 1))
+    return {"name": name, "power_limit": limit}
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 

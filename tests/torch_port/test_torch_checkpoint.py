@@ -68,6 +68,22 @@ def test_count_checkpoint_matches_jax(golden, form):
         assert int(ta["exact_n"]) < CAP["exact"]
 
 
+@pytest.mark.parametrize("flag,field,value", [
+    ("--no-wire-pack", "wire_pack", False),
+    ("--shard-host-spectrum", "shard_host_spectrum", True),
+    ("--no-shard-host-spectrum", "shard_host_spectrum", False)])
+def test_count_manifest_flags_match_jax(golden, tmp_path, flag, field, value):
+    """`count` with each config flag that only reaches the manifest in one
+    process: the port's manifest equals the JAX package's, the field set."""
+    run_clis(["count", "--in", golden["fq"], "--out",
+              str(tmp_path / "{pkg}"), *COMMON, "--exact-capacity",
+              str(CAP["exact"]), flag])
+    jm, _ = j_load_spectrum(str(tmp_path / "j"))
+    tm, _ = load_spectrum(str(tmp_path / "t"))
+    assert tm == jm
+    assert tm["config"][field] is value
+
+
 def test_fresh_correct_matches_jax(golden):
     d = golden["dir"]
     for form in CAP:

@@ -28,7 +28,9 @@ def test_port_imports_no_jax():
             " kmerax_torch.spectrum.bloom_kernels, kmerax_torch.ops.align,"
             " kmerax_torch.ops.align_kernels, kmerax_torch.ops.seed_hash,"
             " kmerax_torch.pipeline.align, kmerax_torch.pipeline.twopass,"
-            " kmerax_torch.pipeline.checkpoint, kmerax_torch.core.minimizer;"
+            " kmerax_torch.pipeline.checkpoint, kmerax_torch.core.minimizer,"
+            " kmerax_torch.io.wire, kmerax_torch.bench.runners,"
+            " kmerax_torch.bench.acceptance, kmerax_torch.bench.sim;"
             " import sys;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'kmerax', 'oracle')];"
