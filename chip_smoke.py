@@ -22,7 +22,12 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      bound (bytes over the HBM rate or int32 operations over the int32
      rate, counted from this run's inputs), the sector floor of its
      counter rows, and one PyTorch call's time where one computes the
-     same function (K1: index_add_ at its lanes).
+     same function (K1: index_add_ at its lanes). K1r bloom_insert_rows,
+     the routed-row insert of a mesh count, on the same config-1 batches at
+     k = 25, 31, 63 under both schemes: the k-mers routed to S = 1, 2, 4
+     and 8 range shards by the port's plain route prep, each shard
+     inserted by K1r == its plain version exactly, and the S slices,
+     concatenated, == K1's whole table (DESIGN.md §12); timed at S = 1.
   3. small goldens: the port's pipeline on the card, under the hash and
      the minimizer bucket scheme, `correct --use-exact`, and `pipeline --k2
      63` must write corrected FASTQ and unitig FASTA bytes equal to the
@@ -52,7 +57,15 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      --preset e2e` on the int8 and the 2-bit wire (walls), and in a child
      process each wire's copies and the count step's launches per batch
      under the profiler; BASELINE config 2 (S. cerevisiae PE100 80x, k=25)
-     through `bench --acceptance 2 --scale 10`, held to its accuracy bars.
+     through `bench --acceptance 2 --scale 10`, held to its accuracy bars;
+     then the mesh count's driver (pipeline/count.py::run_count_sharded)
+     on the same reads over a world-size-1 NCCL group, its table, host
+     spectrum, histogram and threshold byte-equal to run_count's, with
+     its wall, retries and K1r launches. A mesh of more ranks than cards
+     on cuda must raise the JAX package's "mesh DxS needs N devices, have
+     M"; a multi-rank mesh runs only where there are cards for it (with
+     two cards or more, `count --mesh-bucket S` through the CLI, its
+     spectrum == run_count's; with one card a line says it did not run).
 
 Phase 4's count profiler window runs in a child process of its own
 (`python3 chip_smoke.py --child NAME ARG`, used by the script itself), as
@@ -135,6 +148,8 @@ READ_LEN = 150
 # the align-validate path (phase 5)
 MAIN_PATH_KERNELS = ("bloom_insert", "bloom_query_solid",
                      "correct_eval_scores")
+# every kernel of the one-device paths; K1r runs only in a mesh count
+ONE_DEVICE_KERNELS = MAIN_PATH_KERNELS + ("banded_align_scores",)
 
 CARD = ""          # "name, power limit" of the card, set in phase 1
 DEVICE = "cuda"    # the card (a CPU rehearsal of this script sets "cpu")
@@ -445,6 +460,7 @@ def phase_kernels(device=DEVICE):
     recs, mz = [], []
     for scheme, out in (("hash", recs), ("minimizer", mz)):
         out.append(_check_k1(rng, device, scheme))
+        out.append(_check_k1r(rng, device, scheme))
         tk = make_table(_params(31), device)
         out.append(_check_k2(rng, tk, device, scheme=scheme))
         out.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device,
@@ -538,6 +554,149 @@ def _check_k1(rng, device, scheme="hash"):
         del tk, pk
         torch.cuda.empty_cache()
     rec["max_abs_err"] = err_max
+    return rec
+
+
+def _rows_ops(p, n_kmers, lanes):
+    """int32 operations of K1r on routed canonical rows: per valid k-mer
+    two murmur3 hashes (2 x (9W + 8)), the block mask (1) and, under the
+    minimizer scheme, its k-m+1 m-mers (rows of different reads share
+    none: each is extracted (3), mixed (8) and entered into the minimum
+    (2)) and the bucket and block (5); per counter lane its address (3)
+    and its atomic add (1)."""
+    from kmerax_torch.core.codec import num_words
+
+    ops = n_kmers * (18 * num_words(p.k) + 17) + 4 * lanes
+    if p.bucket_scheme == "minimizer":
+        ops += n_kmers * (13 * (p.k - p.minimizer_m + 1) + 5)
+    return ops
+
+
+SHARDS = (1, 2, 4, 8)
+
+
+def _check_k1r(rng, device, scheme="hash"):
+    """K1r == its plain version on the routed rows of one config-1 batch
+    (4096 x 160 int8, 2^29 counters in all) at k = 25, 31 and 63 under the
+    bucket `scheme`: the batch's k-mers routed by the plain route prep
+    (spectrum/sharded.py::route_prep, route_safety 4, one sender) to S =
+    1, 2, 4 and 8 shards; each shard's slice and its pending rows (from a
+    nonzero row offset) equal, and the S slices, concatenated, equal K1's
+    whole table on the same batch. Returns the kernel record at k=31 and
+    S=1 (a one-rank mesh's shapes, timed), and under the hash scheme each
+    S's kernel time on one shard's rows."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import M32, canonical_words, num_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.spectrum.bloom import make_table
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_insert, bloom_insert_rows, bloom_insert_rows_plain
+    from kmerax_torch.spectrum.exact import sentinel_rows
+    from kmerax_torch.spectrum.sharded import ShardedParams, route_prep
+
+    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+    rec, err_max, ms_by_shards = None, 0, {}
+    for k in (25, 31, 63):
+        p = _params(k, scheme)
+        W = num_words(k)
+        reads, _ = _reads(rng, B, L, k)
+        bases = torch.as_tensor(reads.astype(np.int8), device=device)
+        whole = make_table(p, device)
+        n_valid = int(bloom_insert(whole, bases, p))
+        words, valid = extract_kmers(bases, k)
+        canon, _ = canonical_words(words, k)
+        flat, fvalid = canon.reshape(-1, W), valid.reshape(-1)
+        del words, valid, canon
+        for S in SHARDS:
+            sp = ShardedParams(p, S)
+            send, ovf, _ = route_prep(flat, fvalid, sp)
+            if int(ovf):
+                raise AssertionError(f"route overflow {int(ovf)} at S={S}")
+            lb, cap = sp.local_bits, send.shape[0] // S
+            slices, err = [], 0
+            for s in range(S):
+                blk = send[s * cap:(s + 1) * cap]
+                rows, rv = blk[:, :W].contiguous(), blk[:, W] != 0
+                outs = []
+                for fn in (bloom_insert_rows, bloom_insert_rows_plain):
+                    t = torch.zeros(1 << lb, dtype=torch.int32,
+                                    device=device)
+                    pend = sentinel_rows(2 * cap, W, device)
+                    fn(t, rows, rv, p, lb, pend, cap)
+                    torch.cuda.synchronize()
+                    outs.append((t, pend))
+                (tk, pk), (tp, pp) = outs
+                err = max(err, int((tk - tp).abs().max()),
+                          int((pk.long() - pp.long()).abs().max()))
+                if not (torch.equal(tk, tp) and torch.equal(pk, pp)):
+                    raise AssertionError(
+                        f"K1r differs from plain at k={k}, S={S}, shard "
+                        f"{s}, {scheme} scheme (max {err})")
+                slices.append(tk)
+                del tp, pp, pk
+            cat = torch.cat(slices)
+            if not torch.equal(cat, whole):
+                raise AssertionError(f"K1r's {S} slices != K1's table at "
+                                     f"k={k}, {scheme} scheme")
+            del cat, slices
+            err_max = max(err_max, err)
+            num(f"phase2 K1r bloom_insert_rows == plain at k={k}, S={S}, "
+                f"{scheme} scheme: {S} shard(s) of 2^{lb} counters, "
+                f"{cap} routed rows each, slices and pending rows equal, "
+                f"their concatenation == K1's 2^{LW}-counter table "
+                f"({n_valid} k-mers)")
+            if k != 31 or (S != 1 and scheme != "hash"):
+                continue
+            rows, rv = send[:cap, :W].contiguous(), send[:cap, W] != 0
+            t = torch.zeros(1 << lb, dtype=torch.int32, device=device)
+            pend = sentinel_rows(2 * cap, W, device)
+            if S != 1:
+                ms_by_shards[S] = _kernel_ms(
+                    lambda: bloom_insert_rows(t, rows, rv, p, lb, pend,
+                                              cap),
+                    "bloom_insert_rows_kernel")
+                del t, pend
+                continue
+            # the counters and sectors these rows touch, and the one
+            # PyTorch call that adds the same ones at precomputed flat
+            # lane indices of the slice
+            blk, lp = blocks_lanepack(p, rows.long() & M32)
+            blk = blk & ((1 << (lb - 7)) - 1)
+            lanes, sectors = _probe_traffic(t, blk, lp, rv, d)
+            idx = (blk.long()[:, None] * 128 + torch.stack(
+                [(lp.long() >> (7 * j)) & 127 for j in range(d)], -1))[rv]
+            idx = idx.reshape(-1)
+            ones = torch.ones(idx.numel(), dtype=torch.int32, device=device)
+            lib, _ = _per_launch_ms(lambda: t.index_add_(0, idx, ones))
+            del blk, lp, idx, ones
+            times = _timed(
+                lambda: bloom_insert_rows(t, rows, rv, p, lb, pend, cap),
+                lambda: bloom_insert_rows_plain(t, rows, rv, p, lb, pend,
+                                                cap),
+                "bloom_insert_rows_kernel")
+            n_rows = rows.shape[0]
+            io_bytes = n_rows * (4 * W + 1) + 4 * W * n_rows
+            rec = _record("bloom_insert_rows", "kmerax_torch/csrc/bloom.cu",
+                          "kmerax/spectrum/pallas_bloom.py:42", err, times,
+                          io_bytes + 8 * lanes,
+                          _rows_ops(p, int(rv.sum()), lanes),
+                          io_bytes + 2 * SECTOR * sectors, lib, scheme)
+            ms_by_shards[S] = times["kernel_ms"]
+            _say_times(f"phase2 K1r bloom_insert_rows at k=31, S=1, {scheme}"
+                       f" scheme: {n_rows} routed rows ({int(rv.sum())} "
+                       f"valid) into 2^{lb} counters, pending rows from row "
+                       f"{cap}; {lanes} counter lanes in {sectors} sectors",
+                       rec)
+            del t, pend
+        del whole, flat, fvalid, send, bases
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err_max
+    if scheme == "hash":
+        num(f"phase2 K1r at k=31, hash scheme, its own device ms per launch "
+            f"by shard count S (one shard's routed rows, S * cap / S): "
+            f"{ms_by_shards}")
+        rec["ms_by_shards"] = ms_by_shards
     return rec
 
 
@@ -937,6 +1096,12 @@ def phase_golden(workdir: str, device=DEVICE):
         if launches["minimizer"][name] <= 0:
             raise AssertionError(f"{name} never launched under the "
                                  f"minimizer scheme")
+    # the mesh count's driver under the minimizer scheme (K1r's minimizer
+    # instantiation on a path), one rank over NCCL
+    mz, _, wall = _sharded_vs_one(
+        cfg.replace(bucket_scheme="minimizer"), [path])
+    say(f"phase3 golden, minimizer scheme: run_count_sharded (world-size-1 "
+        f"NCCL) == run_count, {wall:.2f} s; launches {mz}")
 
     # correct --use-exact: solidity from the exact spectrum
     out_x = os.path.join(workdir, "golden.exact.fastq")
@@ -996,7 +1161,8 @@ def phase_golden(workdir: str, device=DEVICE):
                                  f"{row!r} vs {(wf, ws, wp, wsc)}")
     say(f"phase3 golden align: {len(rows)} TSV rows equal to "
         f"oracle.align.validate_read; {stats}")
-    return {"golden_minimizer_pipeline": launches["minimizer"]}
+    return {"golden_minimizer_pipeline": launches["minimizer"],
+            "golden_minimizer_sharded_count": mz}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1378,8 +1544,8 @@ def phase_config3(workdir: str):
         f"{sum(lens)} contig bases, longest {lens[0] if lens else 0}")
     num(f"phase5 validate: {result['validate']}")
     num(f"phase5 kernel launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ONE_DEVICE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
 
     before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
@@ -1881,14 +2047,14 @@ def phase_bench(workdir: str, recs=None):
         num(f"phase7 bench {preset}: {r}")
     num(f"phase7 bench --preset all: {wall:.2f} s; launches "
         f"{runs['bench_presets']}")
-    for name, n in runs["bench_presets"].items():
-        if n <= 0:
+    for name in ONE_DEVICE_KERNELS:
+        if runs["bench_presets"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched by bench")
 
     err = _bench_first_batches(DEVICE)
     if recs is not None:
         for r in recs:
-            if r["scheme"] == "hash":
+            if r["scheme"] == "hash" and r["name"] in err:
                 r["max_abs_err"] = max(r["max_abs_err"], err[r["name"]])
 
     walls = {"packed": [res["e2e"]]}
@@ -1912,12 +2078,26 @@ def phase_bench(workdir: str, recs=None):
         f"{C2_FULL_GENOME} bp")
     cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    rep, wall = _cli("phase7", workdir, [
-        "bench", "--acceptance", "2", "--scale", C2_SCALE, "--device",
-        DEVICE])
+    # keep the acceptance run's count (its arrays, copied to the host at
+    # the end of run_count) for the sharded driver's check below
+    import kmerax_torch.pipeline.count as count
+    real_count, kept = count.run_count, []
+
+    def keep_count(*a, **kw):
+        state = real_count(*a, **kw)
+        kept.append(_count_arrays(state))
+        return state
+    count.run_count = keep_count
+    try:
+        rep, wall = _cli("phase7", workdir, [
+            "bench", "--acceptance", "2", "--scale", C2_SCALE, "--device",
+            DEVICE])
+    finally:
+        count.run_count = real_count
     runs["config2_acceptance"] = dict(cuda.LAUNCHES)
     try:
         st = _stages(os.path.join(rep["workdir"], "metrics.jsonl"))
+        runs.update(_sharded_count(rep, kept[0]))
     finally:
         shutil.rmtree(rep["workdir"], ignore_errors=True)
     cnt, cor = st["count"][0], st["correct"][0]
@@ -1940,7 +2120,157 @@ def phase_bench(workdir: str, recs=None):
     for name in MAIN_PATH_KERNELS:
         if runs["config2_acceptance"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched by config 2")
+    _mesh_on_cuda()
     return runs
+
+
+def _count_arrays(state) -> dict:
+    """A count's table, host spectrum, histogram and threshold on the
+    host."""
+    return {"table": state.bloom_table.cpu().numpy(),
+            "uniq": state.host.uniq, "counts": state.host.counts,
+            "hist": state.hist, "threshold": state.threshold,
+            "reads": state.n_reads, "kmers": state.n_kmers}
+
+
+def _same_arrays(got: dict, want: dict, what: str) -> None:
+    import numpy as np
+
+    for key, w in want.items():
+        if not np.array_equal(np.asarray(got[key]), np.asarray(w)):
+            raise AssertionError(f"{what}: {key} differs from run_count's")
+
+
+def _sharded_vs_one(cfg, paths, want=None):
+    """run_count_sharded over a world-size-1 NCCL group (a `file://`
+    rendezvous) against run_count (the one-device path run_count takes at
+    1 x 1) on the same reads (`want`: its `_count_arrays`, else it runs
+    here): table, host spectrum, histogram and threshold byte-equal, and
+    K1r launched once a batch (and once a replay). Returns (its launches,
+    its arrays, its wall)."""
+    import torch
+    import kmerax_torch.pipeline.count as count
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.utils import cuda
+
+    if want is None:
+        want = _count_arrays(count.run_count(cfg, paths, device=DEVICE))
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        mesh = dmesh.init_mesh(dmesh.MeshSpec(1, 1), DEVICE, 0, 1,
+                               "file://" + os.path.join(td, "rendezvous"))
+        try:
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            state = count.run_count_sharded(cfg, paths, device=DEVICE,
+                                            mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda.LAUNCHES)
+            got = _count_arrays(state)
+            if not torch.equal(state.sharded_table, state.bloom_table):
+                raise AssertionError("the one-rank slice != its table")
+            del state
+        finally:
+            dmesh.shutdown()
+    torch.cuda.empty_cache()
+    _same_arrays(got, want, f"run_count_sharded on NCCL (world 1), "
+                            f"{cfg.bucket_scheme} scheme")
+    n_batches = -(-got["reads"] // cfg.batch_reads)
+    if launches["bloom_insert_rows"] != n_batches + count.LAST_COUNT_RETRIES:
+        raise AssertionError(f"K1r launched {launches['bloom_insert_rows']}"
+                             f" times for {n_batches} batches")
+    return launches, got, wall
+
+
+def _sharded_count(rep: dict, want: dict) -> dict:
+    """The mesh count's driver on config 2's reads (`_sharded_vs_one`),
+    against `want`, the arrays of the acceptance run's own run_count.
+    Returns its launches (path "config2_sharded_count")."""
+    import kmerax_torch.pipeline.count as count
+    from kmerax_torch.bench.acceptance import CONFIGS, sized_config
+
+    cfg = sized_config(CONFIGS[2], rep["genome_len"], rep["reads"])
+    paths = [os.path.join(rep["workdir"], f"reads_{i}.fastq.gz")
+             for i in (1, 2)]
+    launches, got, wall = _sharded_vs_one(cfg, paths, want)
+    num(f"phase7 sharded count driver (world-size-1 NCCL, mesh 1 x 1) on "
+        f"config 2's {rep['reads']} reads, k={cfg.k}, 2^"
+        f"{cfg.bloom_log2_width} counters: table ({len(got['table'])} "
+        f"counters), host spectrum ({len(got['uniq'])} distinct), histogram "
+        f"and threshold {got['threshold']} byte-equal to run_count's; "
+        f"count wall {wall:.2f} s (the acceptance run's count above), "
+        f"{got['kmers'] / wall:.1f} k-mers/s; route retries "
+        f"{count.LAST_COUNT_RETRIES}, route_safety at the end "
+        f"{count.LAST_ROUTE_SAFETY}; launches {launches}")
+    _mesh_count(cfg, paths, want, rep["workdir"])
+    return {"config2_sharded_count": launches}
+
+
+def _mesh_count(cfg, paths, want: dict, workdir: str) -> None:
+    """Where the host has two cards or more: `count` through the CLI on a
+    1 x S mesh of NCCL ranks (S the largest power of two <= the cards, at
+    most 8), its saved spectrum == `want` (run_count's)."""
+    import numpy as np
+    import torch
+    from kmerax_torch.pipeline.checkpoint import load_spectrum
+
+    have = torch.cuda.device_count()
+    if have < 2:
+        return
+    S = 1 << (min(have, 8).bit_length() - 1)
+    out = os.path.join(workdir, f"spectrum_1x{S}")
+    res, wall = _cli("phase7", workdir, [
+        "count", "--in", *paths, "--out", out, "--device", DEVICE,
+        "--mesh-bucket", str(S), *_cli_args(dict(
+            k=cfg.k, bloom_log2_width=cfg.bloom_log2_width,
+            exact_capacity=cfg.exact_capacity, batch_reads=cfg.batch_reads,
+            max_read_len=cfg.max_read_len))])
+    _, arrays = load_spectrum(out)
+    if "exact_uniq" in arrays:
+        n = int(arrays["exact_n"])
+        uniq, counts = arrays["exact_uniq"][:n], arrays["exact_counts"][:n]
+    else:
+        uniq, counts = arrays["host_uniq"], arrays["host_counts"]
+    got = {"table": arrays["bloom_table"], "uniq": uniq,
+           "counts": counts.astype(np.int64), "hist": arrays["hist"],
+           "threshold": res["threshold"], "kmers": res["kmers"]}
+    _same_arrays(got, {key: want[key] for key in got},
+                 f"count on a 1 x {S} NCCL mesh")
+    num(f"phase7 mesh count: `count --mesh-bucket {S}` on {S} cards "
+        f"(NCCL), {wall:.2f} s with the ranks' start; table, spectrum, "
+        f"histogram and threshold equal run_count's")
+
+
+def _mesh_on_cuda() -> None:
+    """A mesh of more ranks than the host's cards, on cuda, raises the JAX
+    package's error before it starts a rank (no fall-back to gloo or the
+    CPU). A multi-rank mesh runs only where there are cards for it."""
+    import torch
+    from kmerax_torch.cli import main as cli_main
+
+    have = torch.cuda.device_count()
+    want = f"mesh 2x2 needs 4 devices, have {have}"
+    with tempfile.TemporaryDirectory() as td:
+        fq = os.path.join(td, "r.fastq")
+        with open(fq, "wb") as f:
+            f.write(b"@r\n" + b"ACGT" * 10 + b"\n+\n" + b"I" * 40 + b"\n")
+        try:
+            cli_main(["pipeline", "--in", fq, "--out-fastq",
+                      os.path.join(td, "o.fastq"), "--device", DEVICE,
+                      "--mesh-data", "2", "--mesh-bucket", "2"])
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+    if have < 4 and raised != want:
+        raise AssertionError(f"a 2 x 2 mesh on {have} card(s): {raised!r}, "
+                             f"expected {want!r}")
+    say(f"phase7 mesh: {have} card(s) here: `pipeline --mesh-data 2 "
+        f"--mesh-bucket 2 --device {DEVICE}` raised {raised!r}; a mesh of "
+        f"more than one rank was not run on the card (NCCL puts one rank "
+        f"on a card; the multi-rank mesh is checked on the CPU with gloo)"
+        if have < 2 else
+        f"phase7 mesh: {have} cards here; a 2 x 2 mesh raised {raised!r}")
 
 
 def main() -> int:

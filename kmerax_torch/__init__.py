@@ -2,16 +2,19 @@
 
 The JAX package `kmerax/` is the reference: this package mirrors its layout
 and names and produces the same bytes (DESIGN.md §13) for every
-single-device entry point of its CLI: count, correct (Bloom or exact
+entry point of its CLI on one host: count, correct (Bloom or exact
 spectrum), assemble, the pipeline (one pass or two, k -> k2) with spectrum
 checkpoints and resume, align-validate, and the `bench` presets and
-acceptance configs, under either bucket scheme and on either wire (int8 or
-2-bit). It imports torch and never jax or kmerax.
+acceptance configs, under either bucket scheme, on either wire (int8 or
+2-bit), on one device or on a ("data", "bucket") mesh of one process per
+device. It imports torch and never jax or kmerax.
 
   core/      2-bit codec, k-mer extraction, hashing, minimizers (torch,
              int64 words)
   io/        FASTQ/FASTA streaming, batching, the 2-bit wire (numpy, torch)
-  spectrum/  counting Bloom (kernels K1, K2), exact host spectrum
+  spectrum/  counting Bloom (kernels K1, K1r, K2), exact host spectrum,
+             the bucket-sharded spectrum of a mesh
+  dist/      the mesh: process groups over torch.distributed, launch
   ops/       error correction (kernel K3), seed index and banded
              alignment (kernel K4)
   graph/     unitig assembly, host path

@@ -9,8 +9,11 @@ true bases, so the report counts the injected substitutions the corrector
 removed and the errors it introduced).
 
 `scale` multiplies the genome length; coverage, read length and k match the
-spec. A spec's mesh runs only where that many devices exist, as in the JAX
-package; a mesh larger than 1 x 1 is not ported and raises.
+spec. A spec's mesh runs only where that many devices exist (cards on
+`cuda`; the CPU counts as one device), as in the JAX package: config 4's
+2 x 2 mesh runs on four cards, 1 x 1 on fewer. A mesh runs the stages on
+ranks that this process spawns (dist/mesh.py::launch), so its wall also
+holds their start-up; the report's "mesh" says which mesh ran.
 """
 
 from __future__ import annotations
@@ -179,6 +182,23 @@ def _accuracy(in_reads, out_paths) -> dict:
             "gain": round(gain, 4)}
 
 
+def sized_config(spec: AcceptanceSpec, genome_len: int, n_reads: int,
+                 mesh=(1, 1)) -> KmeraxConfig:
+    """The config run_config gives a spec's simulated inputs."""
+    # distinct k-mers ~ genome + error-induced novels (each error spawns up
+    # to ~k unseen k-mers, clustered); 1.75x margin, pow2
+    distinct = (genome_len
+                + n_reads * spec.read_len * spec.error_rate * spec.k)
+    cap = 1 << max(13, int(np.ceil(np.log2(distinct * 1.75))))
+    # Bloom load <= ~0.5 probes/counter so solidity stays discriminative
+    width = max(18, min(30, int(np.ceil(np.log2(distinct * 6)))))
+    batch_reads = 4096 if n_reads >= 64 * 1024 else 1024
+    return KmeraxConfig(
+        k=spec.k, k2=spec.k2, mesh_data=mesh[0], mesh_bucket=mesh[1],
+        exact_capacity=cap, batch_reads=batch_reads,
+        max_read_len=spec.read_len + 10, bloom_log2_width=width)
+
+
 def run_config(n: int, scale="1.0", workdir: str | None = None,
                seed: int = 42, overrides: dict | None = None, *,
                device) -> dict:
@@ -188,15 +208,11 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
     scale: genome-length multiplier of the spec's scale-down base, or the
     string "full" for the real dataset size (config 1 = the 4.6 Mb E. coli
     genome, ~1.5 M PE150 reads at 50x).
-    overrides: KmeraxConfig field overrides; one that selects a path the
-    port does not have (a mesh larger than 1 x 1) raises "not yet ported".
+    overrides: KmeraxConfig field overrides (a mesh among them runs as
+    given); one that selects a path the port does not have (p16 counters)
+    raises "not yet ported".
     """
-    from kmerax_torch.graph.unitig import assemble_to_fasta
-    from kmerax_torch.pipeline.align import run_align
-    from kmerax_torch.pipeline.correct import run_correct
-    from kmerax_torch.pipeline.count import run_count
-    from kmerax_torch.pipeline.twopass import run_two_pass
-    from kmerax_torch.utils.metrics import MetricsWriter
+    from kmerax_torch.dist.mesh import MeshSpec, launch
 
     device = resolve_device(device)
     spec = CONFIGS[n]
@@ -215,18 +231,7 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
     genome, paths, sim_reads = _sim_inputs(spec, scale, workdir, seed)
     n_reads = sum(len(r) for r in sim_reads)
 
-    # distinct k-mers ~ genome + error-induced novels (each error spawns up
-    # to ~k unseen k-mers, clustered); 1.75x margin, pow2
-    distinct = (len(genome)
-                + n_reads * spec.read_len * spec.error_rate * spec.k)
-    cap = 1 << max(13, int(np.ceil(np.log2(distinct * 1.75))))
-    # Bloom load <= ~0.5 probes/counter so solidity stays discriminative
-    width = max(18, min(30, int(np.ceil(np.log2(distinct * 6)))))
-    batch_reads = 4096 if n_reads >= 64 * 1024 else 1024
-    cfg = KmeraxConfig(
-        k=spec.k, k2=spec.k2, mesh_data=mesh_d, mesh_bucket=mesh_b,
-        exact_capacity=cap, batch_reads=batch_reads,
-        max_read_len=spec.read_len + 10, bloom_log2_width=width)
+    cfg = sized_config(spec, len(genome), n_reads, (mesh_d, mesh_b))
     if overrides:
         cfg = cfg.replace(**overrides)
         mesh_d, mesh_b = cfg.mesh_data, cfg.mesh_bucket
@@ -238,37 +243,15 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
     metrics = os.path.join(workdir, "metrics.jsonl")
 
     t0 = time.perf_counter()
-    if spec.k2:
-        result = run_two_pass(cfg, paths, out_fastq[0] if len(paths) == 1
-                              else out_fastq, out_fasta,
-                              metrics_path=metrics,
-                              workdir=os.path.join(workdir, "ckpt"),
-                              device=device)
-        out_list = out_fastq if len(paths) > 1 else [out_fastq[0]]
+    args = (cfg, spec, paths, out_fastq, out_fasta, metrics, workdir,
+            device.type)
+    if mesh_d * mesh_b > 1:
+        result = launch(MeshSpec(mesh_d, mesh_b), device, _run_stages, *args)
     else:
-        # per-file outputs (paired-end R1/R2) via run_correct's group mode
-        m = MetricsWriter(metrics)
-        try:
-            state = run_count(cfg, paths, metrics=m, device=device)
-            stats = run_correct(cfg, paths, state,
-                                out_fastq if len(paths) > 1
-                                else out_fastq[0], metrics=m, device=device)
-            result = {"threshold": state.threshold, **stats}
-            if out_fasta is not None:
-                result["unitigs"] = assemble_to_fasta(
-                    cfg, state, out_fasta,
-                    corrected_fastq=out_fastq if len(out_fastq) > 1
-                    else out_fastq[0], device=device)
-                # the seed-extend validation stage (DESIGN.md §10b):
-                # corrected reads aligned back to the contigs
-                result["validate"] = run_align(cfg, out_fastq, out_fasta,
-                                               metrics=m, device=device)
-        finally:
-            m.close()
-        out_list = out_fastq
+        result = _run_stages(*args)
     wall = time.perf_counter() - t0
 
-    acc = _accuracy(sim_reads, out_list)
+    acc = _accuracy(sim_reads, out_fastq)
     asm = None
     if out_fasta is not None and os.path.exists(out_fasta):
         asm = assembly_metrics(genome, out_fasta, spec.k2 or spec.k,
@@ -286,6 +269,47 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
     if asm is not None:
         report["assembly"] = asm
     return report
+
+
+def _run_stages(cfg, spec, paths, out_fastq, out_fasta, metrics, workdir,
+                device) -> dict:
+    """The config's stages on `device`, or on this rank of the current
+    mesh (rank 0 aligns and writes); returns the stage results."""
+    from kmerax_torch.dist.mesh import is_writer
+    from kmerax_torch.graph.unitig import assemble_to_fasta
+    from kmerax_torch.pipeline.align import run_align
+    from kmerax_torch.pipeline.correct import run_correct
+    from kmerax_torch.pipeline.count import run_count
+    from kmerax_torch.pipeline.twopass import run_two_pass
+    from kmerax_torch.utils.metrics import MetricsWriter
+
+    if spec.k2:
+        return run_two_pass(cfg, paths, out_fastq[0] if len(paths) == 1
+                            else out_fastq, out_fasta, metrics_path=metrics,
+                            workdir=os.path.join(workdir, "ckpt"),
+                            device=device)
+    # per-file outputs (paired-end R1/R2) via run_correct's group mode
+    m = MetricsWriter(metrics if is_writer() else None)
+    try:
+        state = run_count(cfg, paths, metrics=m, device=device)
+        stats = run_correct(cfg, paths, state,
+                            out_fastq if len(paths) > 1 else out_fastq[0],
+                            metrics=m, device=device)
+        result = {"threshold": state.threshold, **stats}
+        if out_fasta is not None:
+            result["unitigs"] = assemble_to_fasta(
+                cfg, state, out_fasta,
+                corrected_fastq=out_fastq if len(out_fastq) > 1
+                else out_fastq[0], device=device)
+            # the seed-extend validation stage (DESIGN.md §10b):
+            # corrected reads aligned back to the contigs (rank 0 of a
+            # mesh: it runs on one device, as in the JAX package)
+            if is_writer():
+                result["validate"] = run_align(cfg, out_fastq, out_fasta,
+                                               metrics=m, device=device)
+    finally:
+        m.close()
+    return result
 
 
 def run_all(scale: float = 1.0, configs=None, *, device) -> list:

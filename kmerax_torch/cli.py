@@ -1,6 +1,6 @@
-"""kmerax_torch command line: the single-device subcommands of
-kmerax/cli.py on one device, `bench` included (its presets and acceptance
-configs; the multi-host `--scaling` is not ported).
+"""kmerax_torch command line: the subcommands of kmerax/cli.py on one
+device or on a ("data", "bucket") mesh of one host, `bench` included (its
+presets and acceptance configs; the multi-host `--scaling` is not ported).
 
     python -m kmerax_torch.cli count --in R1.fq R2.fq --out spec/ -k 31
     python -m kmerax_torch.cli correct --in R1.fq R2.fq --out c1.fq c2.fq \\
@@ -15,9 +15,15 @@ configs; the multi-host `--scaling` is not ported).
 
 Config precedence: defaults < --config TOML < explicit flags. `--device
 cuda` (the default) raises where CUDA is absent; `--device cpu` runs the
-kernels' plain versions. Flags of paths not yet ported (mesh, multi-host)
-fail with a "not yet ported" error. A spectrum directory from `count` is
-the JAX package's checkpoint format; either package reads the other's.
+kernels' plain versions. `--mesh-data D --mesh-bucket S` runs count,
+correct, assemble and pipeline on a mesh of D·S ranks that this command
+spawns, one process per device (dist/mesh.py): rank r on cuda:r over NCCL,
+or on the CPU over gloo with `--device cpu`; rank 0 writes the files and
+its result is printed. `align` and `bench` run on one device, as in the
+JAX package (an acceptance config picks its own mesh); `bench --preset`
+with mesh flags and the multi-host flags fail with a "not yet ported"
+error. A spectrum directory from `count` is the JAX package's checkpoint
+format; either package reads the other's.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ from kmerax_torch.utils.logging import get_logger
 log = get_logger("kmerax_torch.cli")
 
 # flags of the JAX CLI whose paths the port does not have yet
-_UNPORTED = ("mesh_data", "mesh_bucket", "coordinator", "num_procs",
-             "process_id", "scaling", "hosts")
+_UNPORTED = ("coordinator", "num_procs", "process_id", "scaling", "hosts")
+# the subcommands that run on the config's mesh
+_MESH_CMDS = ("count", "correct", "assemble", "pipeline")
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -61,8 +68,11 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; raises without a "
                         "card) or cpu")
-    for flag in ("--mesh-data", "--mesh-bucket", "--num-procs",
-                 "--process-id"):
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help='mesh "data" axis size (DP over reads)')
+    p.add_argument("--mesh-bucket", type=int, default=None,
+                   help='mesh "bucket" axis size (spectrum sharding)')
+    for flag in ("--num-procs", "--process-id"):
         p.add_argument(flag, type=int, default=None, help="not yet ported")
     p.add_argument("--coordinator", default=None, help="not yet ported")
 
@@ -79,6 +89,7 @@ def _cfg(args) -> KmeraxConfig:
                              False if args.no_shard_host_spectrum else
                              None),
         wire_pack=False if args.no_wire_pack else None,
+        mesh_data=args.mesh_data, mesh_bucket=args.mesh_bucket,
     )
 
 
@@ -155,24 +166,38 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"not yet ported to kmerax_torch: {', '.join(used)}")
 
+    from kmerax_torch.dist import mesh as dmesh
+
+    cfg = _cfg(args)
+    cfg.require_ported()
+    spec = dmesh.MeshSpec(cfg.mesh_data, cfg.mesh_bucket)
+    if spec.ndev > 1 and args.cmd in _MESH_CMDS:
+        result = dmesh.launch(spec, args.device, _run, args)
+    else:
+        result = _run(args)
+    print(json.dumps(result))
+    return 0
+
+
+def _run(args) -> dict:
+    """The subcommand in this process: on the device, or on this rank of
+    the current mesh."""
+    from kmerax_torch.dist import mesh as dmesh
     from kmerax_torch.utils.cuda import resolve_device
     from kmerax_torch.utils.metrics import MetricsWriter
 
     cfg = _cfg(args)
-    cfg.require_ported()
-    device = resolve_device(args.device)
+    mesh = dmesh.current()
+    device = resolve_device(args.device if mesh is None else mesh.device)
     if args.cmd == "pipeline":
-        result = _pipeline(args, cfg, device)
-    elif args.cmd == "bench":
-        result = _bench(args, cfg, device)
-    else:
-        m = MetricsWriter(args.metrics)
-        try:
-            result = _stage(args, cfg, device, m)
-        finally:
-            m.close()
-    print(json.dumps(result))
-    return 0
+        return _pipeline(args, cfg, device)
+    if args.cmd == "bench":
+        return _bench(args, cfg, device)
+    m = MetricsWriter(args.metrics if dmesh.is_writer() else None)
+    try:
+        return _stage(args, cfg, device, m)
+    finally:
+        m.close()
 
 
 def _stage(args, cfg: KmeraxConfig, device, m) -> dict:
@@ -181,9 +206,13 @@ def _stage(args, cfg: KmeraxConfig, device, m) -> dict:
         from kmerax_torch.pipeline.checkpoint import save_spectrum
         from kmerax_torch.pipeline.count import run_count
 
+        from kmerax_torch.dist.mesh import is_writer
+
         state = run_count(cfg, args.inputs, metrics=m, device=device)
-        save_spectrum(args.out, state, extra={"n_reads": state.n_reads,
-                                              "n_kmers": state.n_kmers})
+        if is_writer():
+            save_spectrum(args.out, state,
+                          extra={"n_reads": state.n_reads,
+                                 "n_kmers": state.n_kmers})
         return {"reads": state.n_reads, "kmers": state.n_kmers,
                 "threshold": state.threshold}
     if args.cmd == "correct":
@@ -232,6 +261,9 @@ def _bench(args, cfg: KmeraxConfig, device) -> dict:
         return run_config(args.acceptance, scale=args.scale, device=device)
     from kmerax_torch.bench.runners import run_preset
 
+    if cfg.mesh_data * cfg.mesh_bucket > 1:
+        raise NotImplementedError("not yet ported to kmerax_torch: bench "
+                                  "--preset on a mesh")
     return run_preset(args.preset, cfg, n_reads=args.reads, device=device)
 
 

@@ -57,7 +57,7 @@ class KmeraxConfig:
     # bytes are identical either way (DESIGN.md §11b)
     wire_pack: bool = True
 
-    # mesh (DESIGN.md §12): not yet ported, must stay 1 x 1
+    # mesh (DESIGN.md §12): D x S ranks, one process per device
     mesh_data: int = 1
     mesh_bucket: int = 1
 
@@ -123,8 +123,6 @@ class KmeraxConfig:
         out = []
         if self.bloom_counter == "p16":
             out.append("bloom_counter='p16'")
-        if self.mesh_data * self.mesh_bucket != 1:
-            out.append(f"mesh {self.mesh_data}x{self.mesh_bucket}")
         return out
 
     def require_ported(self) -> None:

@@ -44,6 +44,15 @@ def kmer_hash(words: torch.Tensor, seed: int) -> torch.Tensor:
     return h
 
 
+def hash_bucket(words: torch.Tensor, log2_width: int,
+                log2_buckets: int) -> torch.Tensor:
+    """The hash scheme's bucket (DESIGN.md §5a): the log2_buckets bits of
+    h1 just above the within-segment block offset, int64."""
+    seg_blocks_bits = log2_width - 7 - log2_buckets
+    h1 = kmer_hash(words, HASH_SEED_1)
+    return (h1 >> seg_blocks_bits) & ((1 << log2_buckets) - 1)
+
+
 def bloom_blocks_lanes(words: torch.Tensor, log2_width: int, d: int,
                        buckets: torch.Tensor | None = None,
                        log2_buckets: int = 0):

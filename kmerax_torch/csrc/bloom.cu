@@ -1,5 +1,5 @@
-// Counting-Bloom insert (K1) and round-start window solidity (K2) for
-// Hopper.
+// Counting-Bloom insert (K1), its routed-row form on a range shard (K1r) and
+// round-start window solidity (K2) for Hopper.
 //
 // K1 kmerax_bloom_insert replaces the Pallas kernel
 //   kmerax/spectrum/pallas_bloom.py::_insert_kernel (via insert_pallas),
@@ -37,13 +37,29 @@
 // and passes the two-round probe (kmerax.cuh, shared with K3); each warp
 // step writes 32 consecutive output bytes.
 //
+// K1r kmerax_bloom_insert_rows replaces the same Pallas kernel in its
+// routed-row form: insert_pallas(..., local_bits=...) as
+// kmerax/spectrum/sharded.py::sharded_insert_step calls it on a mesh. It
+// takes the canonical k-mer rows that the bucket all-to-all brought to this
+// rank ((N, W) 32-bit words, the sentinel row where invalid, and an (N,)
+// valid mask) and adds them into this rank's 2^local_bits range shard of the
+// table: the block comes from the GLOBAL table's addressing (kmerax_block
+// with the global block mask, so the minimizer scheme's bucket bits land
+// where they do in the whole table), then keeps its low local_bits - 7 bits
+// (DESIGN.md §12: the shard bits are the top bits of the block). One thread
+// per row; a probe is one atomicAdd, as in K1. With a pending buffer it also
+// writes the row (the sentinel where invalid) at row off + i.
+//
 // What bounds them on an H100: the table is 2^log2_width int32 counters,
 // 2 GiB at log2_width=29, far above the 50 MB L2, so each k-mer touches
 // one random 512-byte row: ~3.6 distinct 32-byte sectors for K1's d=4,
 // each read and written once, and for K2 one sector for a k-mer that fails
 // its first lane, up to d for a solid one. That sector floor, not the few
 // bytes per k-mer of the byte bound, is what a kernel can approach; the
-// addressing's ~130 int32 operations per k-mer sit under it.
+// addressing's ~130 int32 operations per k-mer sit under it. K1r reads
+// its rows once (4W bytes and a valid byte a row) and has the same sector
+// floor on its 2^local_bits shard; with no extraction or canonical form,
+// its addressing is the two hashes (~50 operations a k-mer at W = 2).
 
 #include "kmerax.cuh"
 
@@ -159,6 +175,38 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
     }
 }
 
+template <int W, bool kMinimizer>
+__global__ void bloom_insert_rows_kernel(int32_t* __restrict__ table,
+                                         const uint32_t* __restrict__ rows,
+                                         const uint8_t* __restrict__ rvalid,
+                                         int64_t N, int k, uint32_t block_mask,
+                                         uint32_t local_mask, int d, int m,
+                                         int log2_buckets,
+                                         uint32_t* __restrict__ pending,
+                                         int64_t off) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= N) return;
+    const bool ok = rvalid[i] != 0;
+    uint32_t words[W];
+#pragma unroll
+    for (int wi = 0; wi < W; ++wi) words[wi] = rows[i * W + wi];
+    if (ok) {
+        const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
+        const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
+        const uint32_t block = kmerax_block<W, kMinimizer>(
+            words, k, h1, block_mask, m, log2_buckets) & local_mask;
+        int32_t* trow = table + (size_t)block * 128;
+        for (int j = 0; j < d; ++j)
+            atomicAdd(trow + ((h2 >> (7 * j)) & 127u), 1);
+    }
+    if (pending != nullptr) {
+        uint32_t* out = pending + (off + i) * W;
+#pragma unroll
+        for (int wi = 0; wi < W; ++wi)
+            out[wi] = ok ? words[wi] : KMERAX_FULL_MASK;
+    }
+}
+
 cudaError_t smem_bytes(int L, size_t* smem) {
     *smem = (size_t)kWarps * (3 * ((L + 31) / 32) + 1) * sizeof(uint32_t);
     return *smem > 48 * 1024 ? cudaErrorInvalidValue : cudaSuccess;
@@ -201,6 +249,25 @@ extern "C" int kmerax_bloom_query_solid(const int32_t* table,
             <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k, last_j,
                                                block_mask, d, m, log2_buckets,
                                                t, out);
+        return cudaGetLastError();
+    });
+}
+
+extern "C" int kmerax_bloom_insert_rows(int32_t* table, const int32_t* rows,
+                                        const uint8_t* rvalid, int64_t N,
+                                        int k, uint32_t block_mask,
+                                        uint32_t local_mask, int d, int m,
+                                        int log2_buckets, int32_t* pending,
+                                        int64_t off, cudaStream_t stream) {
+    if (N <= 0) return (int)cudaGetLastError();
+    const auto* r = reinterpret_cast<const uint32_t*>(rows);
+    uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
+    const unsigned grid = (unsigned)((N + kThreads - 1) / kThreads);
+    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
+        bloom_insert_rows_kernel<decltype(w)::value, decltype(mz)::value>
+            <<<grid, kThreads, 0, stream>>>(table, r, rvalid, N, k,
+                                            block_mask, local_mask, d, m,
+                                            log2_buckets, pend, off);
         return cudaGetLastError();
     });
 }

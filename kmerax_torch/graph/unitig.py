@@ -151,24 +151,35 @@ def emit_unitigs(uniq_np: np.ndarray, arrays: dict, k: int) -> list[str]:
 
 def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
                       device=None, metrics=None) -> int:
-    """Assemble stage: exact spectrum -> unitig FASTA.
+    """Assemble stage: exact spectrum -> unitig FASTA (on a mesh, written
+    by rank 0).
 
     If corrected_fastq (path or list of paths, e.g. paired-end R1/R2) is
     given, the spectrum is first re-counted from it on `device` (the
     pipeline assembles corrected reads; the re-count's metrics go to
     `metrics` as a second "count" stage). Returns the unitig count.
     """
+    from kmerax_torch.dist import mesh as dmesh
     from kmerax_torch.graph.partitioned import assemble_host
     from kmerax_torch.io.fasta import write_fasta
     from kmerax_torch.pipeline.count import run_count
 
-    device = device if device is not None else state.bloom_table.device
+    if device is None:
+        device = (state.bloom_table if state.bloom_table is not None
+                  else state.sharded_table).device
     if corrected_fastq is not None:
         paths = ([corrected_fastq] if isinstance(corrected_fastq, str)
                  else list(corrected_fastq))
         state = run_count(cfg, paths, device=device, metrics=metrics)
     if state.host is None:
         raise ValueError("assembly needs exact_spectrum=True")
-    seqs = assemble_host(state.host, state.threshold, cfg.k, device=device)
-    write_fasta(out_fasta, seqs)
-    return len(seqs)
+    # on a mesh every rank holds the same global spectrum, so rank 0 alone
+    # derives the unitigs and writes them; the others take its count
+    mesh = dmesh.current()
+    n = None
+    if dmesh.is_writer():
+        seqs = assemble_host(state.host, state.threshold, cfg.k,
+                             device=device if mesh is None else mesh.device)
+        write_fasta(out_fasta, seqs)
+        n = len(seqs)
+    return n if mesh is None else mesh.broadcast_int(n)

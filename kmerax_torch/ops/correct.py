@@ -217,7 +217,8 @@ def _apply(bases, edits, done, capped, livef, Q, k, max_cands, eval_fn):
 
 def correct_batch(bases, lengths, k: int, t: int, solid_fn,
                   rounds: int = 2, max_runs: int = 8, max_edits: int = 8,
-                  max_cands: int = 4, eval_fn=None, window_fn=None):
+                  max_cands: int = 4, eval_fn=None, window_fn=None,
+                  width_fn=None):
     """Correct a padded read batch (DESIGN.md §8 v2), bit-exact vs oracle.
 
     Args:
@@ -231,6 +232,13 @@ def correct_batch(bases, lengths, k: int, t: int, solid_fn,
       eval_fn: optional candidate evaluator
         (bases, lengths, last_j, ent_r, ent_i) -> (best_b, accept),
         identical to `_eval_entries` with solid_fn (kernel K3 on the card).
+      width_fn: optional map of a round's live entry count to the count the
+        round compacts to (>= it): the routed mesh correction takes the
+        largest over the bucket group, so every rank of it makes the same
+        calls of its collective solid_fn with the same number of k-mers,
+        as the JAX package's `uniform_width` does. Any width gives the
+        same result: an all-padding apply accepts nothing and marks every
+        read done, as the skipped round does.
     Returns (corrected bases (B, L) int32, n_edits (B,) int32 — edits kept;
     0 where the read was reverted for exceeding max_edits).
     """
@@ -272,6 +280,8 @@ def correct_batch(bases, lengths, k: int, t: int, solid_fn,
         # the JAX package's lax.cond width dispatch, in plain Python: read
         # the live count once and compact to the next multiple of 128
         n_ent = int(livef.sum())
+        if width_fn is not None:
+            n_ent = width_fn(n_ent)
         if n_ent == 0:
             done = torch.ones_like(done)
             continue

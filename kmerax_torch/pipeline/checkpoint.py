@@ -28,7 +28,9 @@ def save_spectrum(dirpath: str, state: CountState, *, stage: str = "count",
     """Write `state` (its table, exact or host spectrum and histogram) and
     a manifest with its config and threshold into `dirpath`."""
     os.makedirs(dirpath, exist_ok=True)
-    arrays = {"bloom_table": state.bloom_table.cpu().numpy()}
+    arrays = {}
+    if state.bloom_table is not None:     # None past the replicate budget
+        arrays["bloom_table"] = state.bloom_table.cpu().numpy()
     if state.exact_cap is not None:
         uniq, counts, n = state.host.padded(state.exact_cap)
         arrays.update(exact_uniq=uniq, exact_counts=counts, exact_n=n)

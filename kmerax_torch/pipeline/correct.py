@@ -15,17 +15,30 @@ search of the sentinel-padded sorted spectrum (spectrum/exact.py::
 lookup_sorted) in torch ops. That is not a plain version standing in for a
 kernel: the JAX package runs no Pallas kernel on this path either (B2 and
 B3 probe the Bloom table, not the sorted spectrum).
+
+On a mesh (`cfg.mesh_data * cfg.mesh_bucket > 1`, port of
+kmerax/pipeline/run.py::_correct_step_mesh) every rank corrects its own
+rows of each batch, on the same wire as one device, and the corrected rows
+and edit counts are gathered to every rank in rank order, the order of the
+global batch; rank 0 alone writes. The spectrum path, in the JAX package's
+order: "fused", the K2/K3 step against the replicated table, wherever one
+exists; else "routed-sharded", the plain correction whose probes go by
+all-to-all to their bucket owner's merged slice (spectrum/sharded.py::
+routed_query_fn), where the table is past the replicate budget and
+mesh_bucket > 1; else the JAX package's error. `use_exact` wins over both.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from kmerax_torch.config import KmeraxConfig
+from kmerax_torch.dist import mesh as dmesh
 from kmerax_torch.io import wire
-from kmerax_torch.io.batcher import BackgroundBatcher
+from kmerax_torch.io.batcher import BackgroundBatcher, ReadBatch
 from kmerax_torch.io.fastq import FastqWriter
 from kmerax_torch.ops.correct import correct_batch
 from kmerax_torch.ops.correct_kernels import make_eval_fn, make_window_fn
@@ -36,6 +49,10 @@ from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
 
 log = get_logger("kmerax_torch.pipeline")
+
+# observability: the spectrum path the last mesh correct step selected
+# ("fused" | "routed-sharded")
+LAST_CORRECT_PATH = None
 
 
 def make_correct_step(params, table, t, *, rounds, max_runs, max_edits):
@@ -70,6 +87,54 @@ def make_exact_step(uniq, counts, k, t, *, rounds, max_runs, max_edits):
     return step
 
 
+def make_routed_step(params, sp, table_shard, t, mesh, *, rounds,
+                     max_runs, max_edits):
+    """step(bases, lengths) on a mesh rank whose count kept the table
+    bucket-sharded: the plain correction with every probe routed to its
+    owner's merged slice; each round compacts to the bucket group's
+    largest entry count, so every rank makes the same collectives."""
+    from kmerax_torch.spectrum.sharded import routed_query_fn
+
+    qf = routed_query_fn(sp, table_shard, mesh)
+
+    def solid_fn(cw, v):
+        return (qf(cw, v) >= t) & v
+
+    def width_fn(n):
+        return mesh.max_int(n, mesh.bucket_group)
+
+    def step(bases, lengths):
+        fixed, ne = correct_batch(bases, lengths, params.k, t, solid_fn,
+                                  rounds=rounds, max_runs=max_runs,
+                                  max_edits=max_edits, width_fn=width_fn)
+        return fixed.to(bases.dtype), ne
+
+    return step
+
+
+def _mesh_step(cfg: KmeraxConfig, state: CountState, mesh, kw):
+    """The mesh correct step's spectrum path (see the module docstring)."""
+    global LAST_CORRECT_PATH
+    params = bloom_params(cfg, cfg.k)
+    t = state.threshold
+    if state.bloom_table is not None:
+        LAST_CORRECT_PATH = "fused"
+        step = make_correct_step(params, state.bloom_table.to(mesh.device),
+                                 t, **kw)
+    elif state.sharded is not None and state.sharded_table is not None \
+            and mesh.spec.bucket > 1:
+        LAST_CORRECT_PATH = "routed-sharded"
+        step = make_routed_step(params, state.sharded, state.sharded_table,
+                                t, mesh, **kw)
+    else:
+        raise ValueError(
+            "no replicated table (past replicate budget) and the routed "
+            "path is unavailable — count on a bucket-sharded mesh "
+            "(mesh_bucket > 1) for tables this large")
+    log.info("correct[mesh]: spectrum path = %s", LAST_CORRECT_PATH)
+    return step
+
+
 def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
                 *, device, metrics: Optional[MetricsWriter] = None,
                 use_exact: bool = False) -> dict:
@@ -91,9 +156,15 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
 
     kw = dict(rounds=cfg.rounds, max_runs=cfg.max_runs,
               max_edits=cfg.max_edits)
+    mesh = dmesh.current(cfg)
+    if mesh is not None:
+        device = mesh.device
+        rows = mesh.row_slice(cfg.batch_reads)
     if use_exact:
         uniq, counts, _ = state.exact(device)
         step = make_exact_step(uniq, counts, cfg.k, state.threshold, **kw)
+    elif mesh is not None:
+        step = _mesh_step(cfg, state, mesh, kw)
     else:
         step = make_correct_step(bloom_params(cfg, cfg.k),
                                  state.bloom_table.to(device),
@@ -102,7 +173,8 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
     n_reads = n_edited = n_edits = 0
     m.stage_start("correct")
     for gpaths, gout in units:
-        with FastqWriter(gout) as out:
+        with (FastqWriter(gout) if dmesh.is_writer()
+              else contextlib.nullcontext()) as out:
             def flush(pend):
                 """Read back + write one completed batch."""
                 nonlocal n_reads, n_edited, n_edits
@@ -110,9 +182,10 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
                 fixed, ne = fixed.cpu().numpy(), ne.cpu().numpy()
                 if packed:
                     fixed = wire.unpack2_host(fixed, cfg.max_read_len)
-                for i in range(batch.n):
-                    out.write_record(batch.records[i],
-                                     fixed[i, :batch.lengths[i]])
+                if out is not None:
+                    for i in range(batch.n):
+                        out.write_record(batch.records[i],
+                                         fixed[i, :batch.lengths[i]])
                 n_reads += batch.n
                 n_edited += int((ne[:batch.n] > 0).sum())
                 n_edits += int(ne[:batch.n].sum())
@@ -123,16 +196,31 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
             pend = None
             for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
                                            cfg.max_read_len):
-                bases, lengths, packed = to_device_batch(batch, device,
-                                                         cfg.wire_pack)
+                if mesh is None:
+                    bases, lengths, packed = to_device_batch(
+                        batch, device, cfg.wire_pack)
+                else:
+                    # this rank's rows, on the wire the whole batch takes
+                    pack = cfg.wire_pack and not wire.batch_has_n(
+                        batch.bases, batch.lengths)
+                    bases, lengths, packed = to_device_batch(
+                        ReadBatch(batch.bases[rows], batch.lengths[rows],
+                                  0, []), device, pack)
                 fixed, ne = step(bases, lengths)
                 if packed:          # the D2H leg on the 2-bit wire too
                     fixed = wire.pack2_dev(fixed)
+                if mesh is not None:
+                    fixed = mesh.all_gather_rows(fixed)
+                    ne = mesh.all_gather_rows(ne)
                 if pend is not None:
                     flush(pend)
                 pend = (batch, fixed, ne, packed)
             if pend is not None:
                 flush(pend)
+    if mesh is not None:
+        # the next stage (the assembly's re-count) reads the corrected
+        # FASTQ on every rank: wait until rank 0 has written it
+        mesh.barrier()
     stats = {"reads": n_reads, "edited_reads": n_edited, "edits": n_edits}
     m.stage_end("correct", **stats)
     log.info("correct: %s", stats)

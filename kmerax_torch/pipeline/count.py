@@ -1,4 +1,5 @@
-"""Count stage (port of kmerax/pipeline/run.py::run_count, single device).
+"""Count stage (port of kmerax/pipeline/run.py::run_count and
+_run_count_sharded).
 
 Per batch: the read batch crosses to the device (on the 2-bit wire when
 `cfg.wire_pack` is set and the batch is N-free, then unpacked there to the
@@ -13,6 +14,11 @@ order-free sums, so any flush schedule gives the same spectrum
 A spectrum with fewer distinct k-mers than `exact_capacity` also has the
 JAX package's sentinel-padded device form (`CountState.exact`), built only
 when a caller asks for it.
+
+On a mesh of more than one device (`cfg.mesh_data * cfg.mesh_bucket > 1`)
+`run_count` takes `run_count_sharded`: each rank counts its rows of every
+batch into its range shard of the table through the bucket all-to-all and
+kernel K1r (spectrum/sharded.py).
 """
 
 from __future__ import annotations
@@ -40,10 +46,23 @@ from kmerax_torch.utils.metrics import MetricsWriter
 log = get_logger("kmerax_torch.pipeline")
 
 
+# replicated merged-table ceiling: past this the mesh count keeps the
+# spectrum bucket-sharded only and correction routes probes to owners
+REPLICATE_TABLE_BUDGET = 1 << 29        # 512 MB
+
+# observability of the last mesh count: how many route-overflow batch
+# replays it performed, and the route_safety level it ENDED at (back at
+# baseline in steady state)
+LAST_COUNT_RETRIES = 0
+LAST_ROUTE_SAFETY = None
+
+
 @dataclass
 class CountState:
     cfg: KmeraxConfig
-    bloom_table: torch.Tensor       # (2^log2_width,) int32 on the device
+    # (2^log2_width,) int32 on the device; None after a mesh count whose
+    # table is past REPLICATE_TABLE_BUDGET
+    bloom_table: Optional[torch.Tensor]
     hist: Optional[np.ndarray]
     threshold: int
     n_reads: int
@@ -52,6 +71,10 @@ class CountState:
     # rows of the padded exact form (the JAX package's CountState.exact,
     # kept on its device when n_unique < exact_capacity); None past it
     exact_cap: Optional[int] = None
+    sharded: Optional[object] = None      # ShardedParams of a mesh count
+    # this rank's merged (width/S,) slice after a mesh count: the routed
+    # correction's spectrum for tables too large to replicate
+    sharded_table: Optional[torch.Tensor] = None
 
     def exact(self, device):
         """(uniq (cap, W) int64 words, counts (cap,) int32, n) on `device`,
@@ -126,6 +149,9 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
               k: Optional[int] = None,
               metrics: Optional[MetricsWriter] = None) -> CountState:
     """Count pass: stream batches -> Bloom table (+ exact spectrum)."""
+    if cfg.mesh_data * cfg.mesh_bucket > 1:
+        return run_count_sharded(cfg, paths, device=device, k=k,
+                                 metrics=metrics)
     k = k or cfg.k
     m = metrics or MetricsWriter(None)
     params, exact_flush, P, pend_rows = _count_steps(cfg, k)
@@ -154,27 +180,188 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
         host_ex = exact_flush(*host_ex, pending, off)
     del pending
     n_kmers = int(n_kmers)
-    hist = None
-    host = None
-    exact_cap = None
+    host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
+                                             n_kmers)
+    m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t)
+    log.info("count: threshold=%d", t)
+    return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host,
+                      exact_cap=exact_cap)
+
+
+def _finish_count(cfg, host_ex, k, n_reads, n_kmers, tag="count"):
+    """(host spectrum, histogram, exact_cap, threshold) at stage end."""
+    hist = host = exact_cap = None
     if host_ex is not None:
         host = HostSpectrum(*host_ex, k)
-        log.info("count: %d reads, %d k-mers, %d distinct",
-                 n_reads, n_kmers, host.n_unique)
+        log.info("%s: %d reads, %d k-mers, %d distinct",
+                 tag, n_reads, n_kmers, host.n_unique)
         if host.n_unique < cfg.exact_capacity:
             exact_cap = cfg.exact_capacity
         else:
-            log.info("count: %d distinct >= capacity %d — no padded exact "
-                     "form", host.n_unique, cfg.exact_capacity)
+            log.info("%s: %d distinct >= capacity %d — no padded exact "
+                     "form", tag, host.n_unique, cfg.exact_capacity)
         hist = host.histogram(255)
     if cfg.threshold is None and hist is None:
         raise ValueError("auto threshold needs exact_spectrum=True")
     t = solid_threshold(hist, cfg.threshold) if hist is not None \
         else cfg.threshold
-    m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t)
-    log.info("count: threshold=%d", t)
-    return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host,
-                      exact_cap=exact_cap)
+    return host, hist, exact_cap, t
+
+
+def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
+                      k: Optional[int] = None,
+                      metrics: Optional[MetricsWriter] = None,
+                      mesh=None) -> CountState:
+    """Distributed count pass over the ("data", "bucket") mesh (DESIGN.md
+    §12), on every rank of it: `mesh`, else this process's current mesh of
+    the config's shape.
+
+    Every rank parses the same inputs and counts its rows of each batch
+    (int8 on the device): route to the bucket owners, K1r into the owner's
+    partial slice, the routed raw rows into its pending buffer, which the
+    host merges at wraparound and at the end. A route overflow anywhere
+    makes the batch a no-op everywhere; the capacity then doubles (up to 4S)
+    and the batch replays, and after 8 clean batches it halves back toward
+    the baseline. At the end the slices merge over "data" (kept as
+    `sharded_table`) and, within REPLICATE_TABLE_BUDGET, are gathered over
+    "bucket" into the replicated table; every rank's host spectrum is
+    unioned into the global one. Counts are order-free sums, so the table
+    and the spectrum are those of the one-device count (DESIGN.md §13)."""
+    import dataclasses
+
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.spectrum.sharded import (
+        ShardedParams, allgather_spectrum, flush_pending_local,
+        merge_and_replicate, merge_keep_sharded, recv_rows,
+        sharded_insert_step,
+    )
+
+    global LAST_COUNT_RETRIES, LAST_ROUTE_SAFETY
+    k = k or cfg.k
+    m = metrics or MetricsWriter(None)
+    mesh = mesh or dmesh.current(cfg)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    device = mesh.device
+    D, S = mesh.spec.data, mesh.spec.bucket
+    rows = mesh.row_slice(cfg.batch_reads)
+    sp = ShardedParams(bloom_params(cfg, k), n_shards=S)
+    w = num_words(k)
+    n_flat = (cfg.batch_reads // (D * S)) * (cfg.max_read_len - k + 1)
+    pending = None
+    pend_rows = step_rows = 0
+    if cfg.exact_spectrum:
+        step_rows = recv_rows(sp, n_flat)
+        # buffer ~cap/2 raw rows globally per flush (flat per-batch cost)
+        pend_m = max(1, (cfg.exact_capacity // 2) // (step_rows * D * S))
+        pend_rows = pend_m * step_rows
+        pending = sentinel_rows(pend_rows, w, device)
+    table = torch.zeros(sp.bloom.width // S, dtype=torch.int32,
+                        device=device)
+    step = sharded_insert_step(sp, mesh, k)
+    host_ex = (np.zeros((0, w), np.uint32), np.zeros(0, np.int64))
+
+    def flush(pending, off):
+        nonlocal host_ex
+        raw = flush_pending_local(pending, off)
+        host_ex = np_merge_counted(
+            np.concatenate([host_ex[0], raw], axis=0),
+            np.concatenate([host_ex[1], np.ones(len(raw), np.int64)]))
+        log.info("count[mesh]: flushed %d raw rows (%d distinct resident)",
+                 len(raw), len(host_ex[0]))
+
+    n_reads = n_kmers = off = 0
+    LAST_COUNT_RETRIES = 0
+    # steps are cached per capacity level, and after DECAY_AFTER
+    # overflow-free batches the capacity halves back toward baseline, so
+    # one adversarial batch does not inflate the routed buffers for the
+    # rest of the stage
+    base_safety = sp.route_safety
+    steps_by_safety = {base_safety: step}
+    clean_streak = 0
+    DECAY_AFTER = 8
+
+    def _set_safety(new_safety: int):
+        nonlocal sp, step, step_rows, pend_rows, pending, off
+        sp = dataclasses.replace(sp, route_safety=new_safety)
+        if pending is not None:
+            if off > 0:
+                flush(pending, off)
+            off = 0
+            step_rows = recv_rows(sp, n_flat)
+            pend_m = max(1, (cfg.exact_capacity // 2)
+                         // (step_rows * D * S))
+            pend_rows = pend_m * step_rows
+            pending = None                  # free before the new buffer
+            pending = sentinel_rows(pend_rows, w, device)
+        if new_safety not in steps_by_safety:
+            steps_by_safety[new_safety] = sharded_insert_step(sp, mesh, k)
+        step = steps_by_safety[new_safety]
+
+    m.stage_start("count")
+    for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
+        bases = torch.from_numpy(batch.bases[rows].astype(np.int8)).to(device)
+        while True:
+            nk, ovf = step(table, pending, bases, off)
+            if ovf == 0:
+                break
+            # route overflow: the step was a no-op on every rank — double
+            # the per-destination capacity and replay this batch; counts
+            # stay exact because nothing was inserted
+            LAST_COUNT_RETRIES += 1
+            new_safety = sp.route_safety * 2
+            if new_safety > 4 * S:
+                raise RuntimeError(
+                    f"bucket route overflow persists at route_safety="
+                    f"{sp.route_safety} ({ovf} k-mers)")
+            log.info("count[mesh]: route overflow (%d k-mers) — retrying "
+                     "batch with route_safety=%d", ovf, new_safety)
+            _set_safety(new_safety)
+            clean_streak = 0
+        if pending is not None:
+            off += step_rows
+            if off + step_rows > pend_rows:
+                flush(pending, off)
+                off = 0
+        n_reads += batch.n
+        n_kmers += nk
+        if sp.route_safety > base_safety:
+            clean_streak += 1
+            if clean_streak >= DECAY_AFTER:
+                log.info("count[mesh]: %d clean batches — decaying "
+                         "route_safety %d -> %d", clean_streak,
+                         sp.route_safety, max(base_safety,
+                                              sp.route_safety // 2))
+                _set_safety(max(base_safety, sp.route_safety // 2))
+                clean_streak = 0
+    if pending is not None and off > 0:
+        flush(pending, off)
+    del pending
+    LAST_ROUTE_SAFETY = sp.route_safety
+
+    if sp.bloom.width * 4 <= REPLICATE_TABLE_BUDGET:
+        merged = merge_and_replicate(table, mesh)   # (width,) replicated
+    else:
+        # past the replication budget the table stays bucket-sharded only;
+        # correction takes the routed-query path
+        log.info("count[mesh]: table %d B > replicate budget — keeping "
+                 "bucket-sharded only (routed correction)",
+                 sp.bloom.width * 4)
+        merge_keep_sharded(table, mesh)
+        merged = None
+    if cfg.exact_spectrum:
+        host_ex = allgather_spectrum(*host_ex, mesh)
+    else:
+        host_ex = None
+    host, hist, exact_cap, t = _finish_count(
+        cfg, host_ex, k, n_reads, n_kmers, tag=f"count[mesh {D}x{S}]")
+    m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t,
+                route_retries=LAST_COUNT_RETRIES,
+                route_safety_end=sp.route_safety)
+    log.info("count[mesh]: threshold=%d", t)
+    return CountState(cfg, merged, hist, t, n_reads, n_kmers, host=host,
+                      exact_cap=exact_cap, sharded=sp, sharded_table=table)
 
 
 def count_state_from_numpy(cfg: KmeraxConfig, table, uniq, counts,

@@ -1,11 +1,15 @@
 """Pipeline orchestrator: count -> correct [-> assemble [-> align-validate]]
-on one device (port of kmerax/pipeline/run.py::run_pipeline)."""
+on one device or on every rank of a mesh (port of
+kmerax/pipeline/run.py::run_pipeline). On a mesh rank 0 alone writes the
+metrics and the files, and aligns (the align stage runs on one device, as
+in the JAX package)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 from kmerax_torch.config import KmeraxConfig
+from kmerax_torch.dist.mesh import is_writer
 from kmerax_torch.graph.unitig import assemble_to_fasta
 from kmerax_torch.pipeline.align import run_align
 from kmerax_torch.pipeline.correct import run_correct
@@ -24,7 +28,7 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
     contigs and only acts when out_fasta is given, as in the JAX package."""
     cfg.require_ported()
     device = resolve_device(device)
-    m = MetricsWriter(metrics_path)
+    m = MetricsWriter(metrics_path if is_writer() else None)
     try:
         state = run_count(cfg, paths, metrics=m, device=device)
         stats = run_correct(cfg, paths, state, out_fastq, metrics=m,
@@ -37,7 +41,7 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
                                           device=device, metrics=m)
             m.stage_end("assemble", unitigs=n_unitigs)
             result["unitigs"] = n_unitigs
-            if validate:
+            if validate and is_writer():
                 corrected = out_fastq if isinstance(out_fastq, (list, tuple)) \
                     else [out_fastq]
                 result["validate"] = run_align(cfg, corrected, out_fasta,

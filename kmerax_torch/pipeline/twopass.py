@@ -6,7 +6,11 @@ at k2 -> unitig assembly. With a `workdir`, every count stage checkpoints
 its spectrum (pipeline/checkpoint.py) and every stage writes a done-marker,
 so a crashed run resumes from the last complete stage and re-runs only the
 unfinished ones; the resumed output is byte-identical to an uninterrupted
-run. One process: it is always the writer of the markers.
+run. On a mesh every rank runs the stages and rank 0 alone writes the
+checkpoints and markers, each marker after its files; a resumed mesh run
+corrects through the replicated table ("fused"), since a checkpoint keeps
+no bucket-sharded one, and a checkpoint without the replicated table
+(counted past the replicate budget) refuses to resume.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import os
 from typing import Optional
 
 from kmerax_torch.config import KmeraxConfig
+from kmerax_torch.dist import mesh as dmesh
 from kmerax_torch.graph.unitig import assemble_to_fasta
 from kmerax_torch.pipeline.checkpoint import load_spectrum, save_spectrum, \
     state_from_checkpoint
@@ -36,8 +41,10 @@ def _is_done(workdir: Optional[str], stage: str) -> bool:
 
 
 def _mark_done(workdir: Optional[str], stage: str) -> None:
-    """Write the stage done-marker through a tmp file."""
-    if workdir is None:
+    """Write the stage done-marker through a tmp file (rank 0 of a mesh
+    only: its ranks racing one os.replace on the same tmp name would
+    consume each other's file)."""
+    if workdir is None or not dmesh.is_writer():
         return
     tmp = _marker(workdir, stage) + ".tmp"
     with open(tmp, "w") as f:
@@ -56,15 +63,21 @@ def _count_stage(cfg: KmeraxConfig, paths, workdir, stage: str,
             log.info("%s: resumed from checkpoint", stage)
             if "bloom_table" not in arrays:
                 raise RuntimeError(
-                    f"{stage}: checkpoint has no bloom table — resume by "
+                    f"{stage}: checkpoint has no replicated bloom table "
+                    "(counted past the replicate budget) — resume by "
                     "re-counting (delete the stage marker)")
+            if cfg.mesh_data * cfg.mesh_bucket > 1:
+                log.info("%s: resumed state has no bucket-sharded table — "
+                         "mesh correction will use the replicated table",
+                         stage)
             return state_from_checkpoint(cfg, manifest, arrays, device,
                                          host_form=True)
     state = run_count(cfg, paths, metrics=m, device=device)
     if workdir is not None:
-        save_spectrum(spec_dir, state, stage=stage,
-                      extra={"n_reads": state.n_reads,
-                             "n_kmers": state.n_kmers})
+        if dmesh.is_writer():
+            save_spectrum(spec_dir, state, stage=stage,
+                          extra={"n_reads": state.n_reads,
+                                 "n_kmers": state.n_kmers})
         _mark_done(workdir, stage)
     return state
 
@@ -81,7 +94,7 @@ def run_two_pass(cfg: KmeraxConfig, paths, out_fastq,
     device = resolve_device(device)
     if workdir is not None:
         os.makedirs(workdir, exist_ok=True)
-    m = MetricsWriter(metrics_path)
+    m = MetricsWriter(metrics_path if dmesh.is_writer() else None)
     # out_fastq may be a list (paired-end R1/R2 per-file outputs)
     out_list = [out_fastq] if isinstance(out_fastq, str) else list(out_fastq)
     try:

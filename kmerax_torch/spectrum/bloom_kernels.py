@@ -1,8 +1,9 @@
-"""Counting-Bloom kernels K1 (insert) and K2 (window solidity): the CUDA
-wrappers and their plain PyTorch versions (sources: csrc/bloom.cu).
+"""Counting-Bloom kernels K1 (insert), K1r (insert of routed rows into a
+range shard) and K2 (window solidity): the CUDA wrappers and their plain
+PyTorch versions (sources: csrc/bloom.cu).
 
-Both address k-mers under either bucket scheme of BloomParams (the kernels
-take `scheme_args`).
+All three address k-mers under either bucket scheme of BloomParams (the
+kernels take `scheme_args`).
 
 K1 replaces kmerax/spectrum/pallas_bloom.py::_insert_kernel together with
 the count step's addressing: it takes the (B, L) int8 read batch and does
@@ -12,6 +13,12 @@ the correct round calls it (kmerax/ops/correct.py::_window_counts): it
 takes the round's (B, L) int32 read batch and last_j and returns the
 solidity of every window, addressing them itself, in one launch. The table
 is the flat (nrows * 128,) int32 counter array.
+
+K1r replaces the same Pallas kernel as a mesh count calls it on a range
+shard (kmerax/spectrum/sharded.py::sharded_insert_step, insert_pallas with
+`local_bits`): it takes the canonical k-mer rows the bucket all-to-all
+brought to this rank and adds them into this rank's 2^local_bits slice,
+addressed as in the global table and masked to the slice (DESIGN.md §12).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback.
@@ -23,7 +30,8 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from kmerax_torch.core.codec import canonical_words, num_words, to_u32_bits
+from kmerax_torch.core.codec import M32, canonical_words, num_words, \
+    to_u32_bits
 from kmerax_torch.core.hash import bloom_blocks_lanes
 from kmerax_torch.core.kmers import extract_kmers
 from kmerax_torch.core.minimizer import buckets
@@ -161,6 +169,66 @@ def bloom_insert(table: torch.Tensor, bases: torch.Tensor,
     cuda.LAUNCHES["bloom_insert"] += 1
     cuda.check(rc, "bloom_insert")
     return n_valid
+
+
+def bloom_insert_rows_plain(table: torch.Tensor, rows: torch.Tensor,
+                            rvalid: torch.Tensor, params: BloomParams,
+                            local_bits: int,
+                            pending: Optional[torch.Tensor] = None,
+                            off: int = 0) -> None:
+    """Plain version of K1r, the JAX package's `insert(..., local_bits=)`:
+    address the canonical rows ((N, W) int32 words) in the global table,
+    keep the low local_bits - 7 bits of each block and insert the valid
+    rows into the (2^local_bits,) slice in place; write the rows (the
+    sentinel where invalid) to pending[off:off + N] when pending is
+    given."""
+    block, lp = blocks_lanepack(params, rows.to(torch.int64) & M32)
+    block = block & ((1 << (local_bits - 7)) - 1)
+    insert_plain(table, block, lp, rvalid, params.num_hashes)
+    if pending is not None:
+        pending[off:off + rows.shape[0]] = torch.where(rvalid[:, None], rows,
+                                                       -1)
+
+
+def bloom_insert_rows(table: torch.Tensor, rows: torch.Tensor,
+                      rvalid: torch.Tensor, params: BloomParams,
+                      local_bits: int, pending: Optional[torch.Tensor] = None,
+                      off: int = 0) -> None:
+    """K1r: insert the valid canonical rows ((N, W) int32 words, (N,) bool
+    rvalid) into this rank's (2^local_bits,) int32 slice of the table
+    whose parameters are `params`, in place; write the rows (the sentinel
+    where invalid) from row `off` of `pending` ((P, W) int32) when
+    given."""
+    dev = table.device
+    if not 7 < local_bits <= params.log2_width:
+        raise ValueError(f"local_bits {local_bits} outside (7, "
+                         f"{params.log2_width}]")
+    cuda.require(table, "table", torch.int32, dev, (1 << local_bits,))
+    cuda.require(rows, "rows", torch.int32, dev)
+    W = num_words(params.k)
+    if rows.dim() != 2 or rows.shape[1] != W:
+        raise ValueError(f"rows: shape {tuple(rows.shape)}, expected "
+                         f"(N, {W})")
+    N = rows.shape[0]
+    cuda.require(rvalid, "rvalid", torch.bool, dev, (N,))
+    if pending is not None:
+        cuda.require(pending, "pending", torch.int32, dev)
+        if pending.dim() != 2 or pending.shape[1] != W:
+            raise ValueError(f"pending: shape {tuple(pending.shape)}, "
+                             f"expected (P, {W})")
+        if not 0 <= off <= pending.shape[0] - N:
+            raise ValueError(f"pending rows [{off}, {off + N}) outside "
+                             f"[0, {pending.shape[0]})")
+    if dev.type == "cpu":
+        return bloom_insert_rows_plain(table, rows, rvalid, params,
+                                       local_bits, pending, off)
+    rc = cuda.lib().kmerax_bloom_insert_rows(
+        table.data_ptr(), rows.data_ptr(), rvalid.data_ptr(), N, params.k,
+        (1 << (params.log2_width - 7)) - 1, (1 << (local_bits - 7)) - 1,
+        params.num_hashes, *scheme_args(params),
+        None if pending is None else pending.data_ptr(), off, cuda.stream())
+    cuda.LAUNCHES["bloom_insert_rows"] += 1
+    cuda.check(rc, "bloom_insert_rows")
 
 
 def query_solid_plain(table: torch.Tensor, block: torch.Tensor,

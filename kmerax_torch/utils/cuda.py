@@ -31,8 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel wrapper: each wrapper adds one where it launches its
 # CUDA kernel and nowhere else (never on its plain CPU path), so a run can
 # show that the main path went through the kernels
-LAUNCHES = {"bloom_insert": 0, "bloom_query_solid": 0,
-            "correct_eval_scores": 0, "banded_align_scores": 0}
+LAUNCHES = {"bloom_insert": 0, "bloom_insert_rows": 0,
+            "bloom_query_solid": 0, "correct_eval_scores": 0,
+            "banded_align_scores": 0}
 
 
 def reset_launches() -> None:
@@ -152,13 +153,17 @@ def lib() -> ctypes.CDLL:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     L.kmerax_bloom_insert.argtypes = [
         P, P, I, I, I, ctypes.c_uint32, I, I, I, P, I64, P, P]
+    L.kmerax_bloom_insert_rows.argtypes = [
+        P, P, P, I64, I, ctypes.c_uint32, ctypes.c_uint32, I, I, I, P, I64,
+        P]
     L.kmerax_bloom_query_solid.argtypes = [
         P, P, I, I, I, P, ctypes.c_uint32, I, I, I, I, P, P]
     L.kmerax_correct_eval_scores.argtypes = [
         P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, I, I, P, P]
     L.kmerax_banded_align_scores.argtypes = [
         P, I, P, I, P, P, I64, I, I, P, P]
-    for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_query_solid,
+    for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_insert_rows,
+               L.kmerax_bloom_query_solid,
                L.kmerax_correct_eval_scores, L.kmerax_banded_align_scores):
         fn.restype = I
     L.kmerax_cuda_error_string.argtypes = [I]

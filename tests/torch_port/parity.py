@@ -71,3 +71,47 @@ def run_clis(argv, device="cpu"):
                         + extra) == 0
         out.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
     return tuple(out)
+
+
+MESH_TIMEOUT = 300          # seconds a spawned mesh run may take
+
+
+def run_mesh(jobs, tmp_path, timeout=MESH_TIMEOUT):
+    """Run each (mesh (D, S), job dict) on a gloo mesh of D·S processes of
+    tests/torch_port/_mesh_worker.py, all meshes at once, each through a
+    `file://` rendezvous under tmp_path; wait up to `timeout` seconds, then
+    kill every process and fail. A job's steps write under its `out`."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here.parents[1]))
+    procs = []
+    try:
+        for i, (mesh, job) in enumerate(jobs):
+            job = dict(job, mesh=list(mesh))
+            spec = tmp_path / f"job{i}.json"
+            spec.write_text(json.dumps(job))
+            world = mesh[0] * mesh[1]
+            init = f"file://{tmp_path / f'rendezvous{i}'}"
+            for r in range(world):
+                log = open(tmp_path / f"job{i}_r{r}.log", "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, str(here / "_mesh_worker.py"), str(r),
+                     str(world), init, str(spec)], stdout=log,
+                    stderr=subprocess.STDOUT, env=env), log))
+        deadline = time.monotonic() + timeout
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [(log.name, p.returncode) for p, log in procs if p.returncode]
+    assert not bad, "\n".join(f"{name} exited {rc}:\n" + open(name).read()
+                              for name, rc in bad)

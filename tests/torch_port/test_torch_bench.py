@@ -198,7 +198,26 @@ def test_bench_scaling_not_ported(argv):
         main(["bench", *argv, "--device", "cpu"])
 
 
-def test_mesh_override_not_ported(tmp_path):
+def test_mesh_override_not_ported(tmp_path, monkeypatch):
+    """A mesh override is ported now: config 4 with mesh_data=2 runs its
+    stages on a 2 x 1 gloo mesh of spawned ranks, says so in its report,
+    and writes the 1 x 1 run's FASTQ bytes; the p16 counters stay
+    refused."""
+    from kmerax_torch.dist import mesh as dmesh
+
+    monkeypatch.setattr(dmesh, "LAUNCH_TIMEOUT", 300)
+    one = run_config(4, scale=0.02, workdir=str(tmp_path / "one"),
+                     device="cpu")
+    two = run_config(4, scale=0.02, workdir=str(tmp_path / "two"),
+                     overrides={"mesh_data": 2}, device="cpu")
+    assert one["mesh"] == [1, 1] and two["mesh"] == [2, 1]
+    assert two["accuracy"] == one["accuracy"]
+    outs = sorted(f for f in os.listdir(tmp_path / "one")
+                  if f.startswith("corrected_"))
+    assert len(outs) == 2
+    for f in outs:
+        assert (tmp_path / "two" / f).read_bytes() == \
+            (tmp_path / "one" / f).read_bytes(), f
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_config(4, scale=0.02, workdir=str(tmp_path),
-                   overrides={"mesh_data": 2}, device="cpu")
+        run_config(4, scale=0.02, workdir=str(tmp_path / "p16"),
+                   overrides={"bloom_counter": "p16"}, device="cpu")

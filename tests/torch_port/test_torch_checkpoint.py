@@ -71,17 +71,29 @@ def test_count_checkpoint_matches_jax(golden, form):
 @pytest.mark.parametrize("flag,field,value", [
     ("--no-wire-pack", "wire_pack", False),
     ("--shard-host-spectrum", "shard_host_spectrum", True),
-    ("--no-shard-host-spectrum", "shard_host_spectrum", False)])
-def test_count_manifest_flags_match_jax(golden, tmp_path, flag, field, value):
+    ("--no-shard-host-spectrum", "shard_host_spectrum", False),
+    ("--mesh-data=2", "mesh_data", 2),
+    ("--mesh-bucket=2", "mesh_bucket", 2)])
+def test_count_manifest_flags_match_jax(golden, tmp_path, monkeypatch, flag,
+                                        field, value):
     """`count` with each config flag that only reaches the manifest in one
-    process: the port's manifest equals the JAX package's, the field set."""
-    run_clis(["count", "--in", golden["fq"], "--out",
-              str(tmp_path / "{pkg}"), *COMMON, "--exact-capacity",
-              str(CAP["exact"]), flag])
-    jm, _ = j_load_spectrum(str(tmp_path / "j"))
-    tm, _ = load_spectrum(str(tmp_path / "t"))
+    process, or that runs the count on a mesh (the port's on ranks it
+    spawns, rank 0 writing): the port's manifest equals the JAX package's,
+    the field set, and so do the saved arrays."""
+    from kmerax_torch.dist import mesh as dmesh
+
+    monkeypatch.setattr(dmesh, "LAUNCH_TIMEOUT", 300)
+    jres, tres = run_clis(["count", "--in", golden["fq"], "--out",
+                           str(tmp_path / "{pkg}"), *COMMON,
+                           "--exact-capacity", str(CAP["exact"]), flag])
+    assert tres == jres
+    jm, ja = j_load_spectrum(str(tmp_path / "j"))
+    tm, ta = load_spectrum(str(tmp_path / "t"))
     assert tm == jm
     assert tm["config"][field] is value
+    assert sorted(ta) == sorted(ja)
+    for name in ja:
+        np.testing.assert_array_equal(ta[name], ja[name], err_msg=name)
 
 
 def test_fresh_correct_matches_jax(golden):

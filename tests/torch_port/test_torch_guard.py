@@ -21,22 +21,49 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def _port_modules() -> list[str]:
+    """Every module of kmerax_torch, by dotted name (dist/ included)."""
+    pkg = Path(ROOT) / "kmerax_torch"
+    return sorted(
+        ".".join(("kmerax_torch", *p.relative_to(pkg).with_suffix("").parts))
+        .removesuffix(".__init__") for p in pkg.rglob("*.py"))
+
+
 def test_port_imports_no_jax():
-    """The GPU machine has no jax: a stray import would only show there."""
-    code = ("import kmerax_torch, kmerax_torch.cli, kmerax_torch.pipeline.run,"
-            " kmerax_torch.ops.correct_kernels,"
-            " kmerax_torch.spectrum.bloom_kernels, kmerax_torch.ops.align,"
-            " kmerax_torch.ops.align_kernels, kmerax_torch.ops.seed_hash,"
-            " kmerax_torch.pipeline.align, kmerax_torch.pipeline.twopass,"
-            " kmerax_torch.pipeline.checkpoint, kmerax_torch.core.minimizer,"
-            " kmerax_torch.io.wire, kmerax_torch.bench.runners,"
-            " kmerax_torch.bench.acceptance, kmerax_torch.bench.sim;"
-            " import sys;"
+    """The GPU machine has no jax: a stray import would only show there.
+    Every module of the package is imported."""
+    mods = _port_modules()
+    assert "kmerax_torch.dist.mesh" in mods
+    assert "kmerax_torch.spectrum.sharded" in mods
+    code = (f"import importlib, sys; [importlib.import_module(m) for m in "
+            f"{mods!r}];"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'kmerax', 'oracle')];"
             " assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_port_modules_import_nothing_of_jax():
+    """No module of kmerax_torch (dist/ included) names jax, jaxlib, the
+    JAX package or the oracle in an import statement, at any depth of its
+    code, so an import that only runs inside a function fails here too."""
+    pkg = Path(ROOT) / "kmerax_torch"
+    bad = []
+    for path in sorted(pkg.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "kmerax",
+                                          "oracle"):
+                    bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert (Path(ROOT) / "kmerax_torch" / "dist" / "mesh.py").exists()
+    assert not bad, bad
 
 
 def test_config_matches_jax():
@@ -106,7 +133,8 @@ def test_native_parser_source_is_the_ports_own():
     assert native._so_path().parent == Path(ROOT) / "kmerax_torch" / "_build"
 
 
-@pytest.mark.parametrize("extra", [["--mesh-data", "2"], ["--mesh-bucket", "2"],
+@pytest.mark.parametrize("extra", [["--process-id", "1"],
+                                   ["--num-procs", "2", "--mesh-bucket", "2"],
                                    ["--num-procs", "2"],
                                    ["--coordinator", "localhost:1234"]])
 def test_unported_flags_fail(tmp_path, extra):
@@ -116,7 +144,8 @@ def test_unported_flags_fail(tmp_path, extra):
 
 
 @pytest.mark.parametrize("kw", [dict(bloom_counter="p16"),
-                                dict(mesh_data=2)])
+                                dict(bloom_counter="p16", mesh_data=2,
+                                     mesh_bucket=2)])
 def test_unported_config_fails(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         run_pipeline(KmeraxConfig(**kw), ["r.fastq"],
