@@ -675,16 +675,18 @@ def _check_k1r(rng, device, scheme="hash"):
                 lambda: bloom_insert_rows_plain(t, rows, rv, p, lb, pend,
                                                 cap),
                 "bloom_insert_rows_kernel")
-            n_rows = rows.shape[0]
-            io_bytes = n_rows * (4 * W + 1) + 4 * W * n_rows
+            n_rows, n_ok = rows.shape[0], int(rv.sum())
+            # the valid byte of every row, the words of the valid rows
+            # only (a sentinel slot's are never needed), every pending row
+            io_bytes = n_rows + 4 * W * n_ok + 4 * W * n_rows
             rec = _record("bloom_insert_rows", "kmerax_torch/csrc/bloom.cu",
                           "kmerax/spectrum/pallas_bloom.py:42", err, times,
                           io_bytes + 8 * lanes,
-                          _rows_ops(p, int(rv.sum()), lanes),
+                          _rows_ops(p, n_ok, lanes),
                           io_bytes + 2 * SECTOR * sectors, lib, scheme)
             ms_by_shards[S] = times["kernel_ms"]
             _say_times(f"phase2 K1r bloom_insert_rows at k=31, S=1, {scheme}"
-                       f" scheme: {n_rows} routed rows ({int(rv.sum())} "
+                       f" scheme: {n_rows} routed rows ({n_ok} "
                        f"valid) into 2^{lb} counters, pending rows from row "
                        f"{cap}; {lanes} counter lanes in {sectors} sectors",
                        rec)

@@ -172,7 +172,12 @@ def main(argv=None) -> int:
     cfg.require_ported()
     spec = dmesh.MeshSpec(cfg.mesh_data, cfg.mesh_bucket)
     if spec.ndev > 1 and args.cmd in _MESH_CMDS:
-        result = dmesh.launch(spec, args.device, _run, args)
+        from kmerax_torch.pipeline.run import restore_observed, \
+            with_observed
+
+        result, obs = dmesh.launch(spec, args.device, with_observed, _run,
+                                   args)
+        restore_observed(obs)
     else:
         result = _run(args)
     print(json.dumps(result))

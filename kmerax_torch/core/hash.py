@@ -44,36 +44,36 @@ def kmer_hash(words: torch.Tensor, seed: int) -> torch.Tensor:
     return h
 
 
-def hash_bucket(words: torch.Tensor, log2_width: int,
-                log2_buckets: int) -> torch.Tensor:
-    """The hash scheme's bucket (DESIGN.md §5a): the log2_buckets bits of
-    h1 just above the within-segment block offset, int64."""
-    seg_blocks_bits = log2_width - 7 - log2_buckets
+def bloom_block(words: torch.Tensor, log2_width: int,
+                buckets: torch.Tensor | None = None,
+                log2_buckets: int = 0) -> torch.Tensor:
+    """The k-mer's global 128-counter block (DESIGN.md §5), int64.
+
+    `buckets=None` selects the hash scheme (DESIGN.md §5a): the block is
+    the low (log2_width - 7) bits of h1. Otherwise (the minimizer scheme,
+    DESIGN.md §4) the block is the k-mer's bucket above the low
+    (log2_width - 7 - log2_buckets) bits of h1. Either way the block's top
+    log2_buckets bits are its bucket, so a range shard of the table is a
+    run of buckets (DESIGN.md §12)."""
     h1 = kmer_hash(words, HASH_SEED_1)
-    return (h1 >> seg_blocks_bits) & ((1 << log2_buckets) - 1)
+    if buckets is None:
+        return h1 & ((1 << (log2_width - 7)) - 1)
+    seg_blocks_bits = log2_width - 7 - log2_buckets
+    return (buckets.to(torch.int64) << seg_blocks_bits) \
+        | (h1 & ((1 << seg_blocks_bits) - 1))
 
 
 def bloom_blocks_lanes(words: torch.Tensor, log2_width: int, d: int,
                        buckets: torch.Tensor | None = None,
                        log2_buckets: int = 0):
     """Register-blocked Bloom addressing (DESIGN.md §5): every k-mer maps to
-    one 128-counter block and its d probes are 7-bit lanes of h2 inside it.
-
-    `buckets=None` selects the hash scheme (DESIGN.md §5a): the block is
-    the low (log2_width - 7) bits of h1. Otherwise (the minimizer scheme,
-    DESIGN.md §4) the block is the k-mer's bucket above the low
-    (log2_width - 7 - log2_buckets) bits of h1.
+    one 128-counter block (`bloom_block`) and its d probes are 7-bit lanes
+    of h2 inside it.
 
     Returns (block (...) int32 global block index, lanes (..., d) int32).
     """
     assert d <= 4
-    h1 = kmer_hash(words, HASH_SEED_1)
+    block = bloom_block(words, log2_width, buckets, log2_buckets)
     h2 = kmer_hash(words, HASH_SEED_2)
-    if buckets is None:
-        block = h1 & ((1 << (log2_width - 7)) - 1)
-    else:
-        seg_blocks_bits = log2_width - 7 - log2_buckets
-        block = (buckets.to(torch.int64) << seg_blocks_bits) \
-            | (h1 & ((1 << seg_blocks_bits) - 1))
     lanes = torch.stack([(h2 >> (7 * i)) & 127 for i in range(d)], dim=-1)
     return block.to(torch.int32), lanes.to(torch.int32)

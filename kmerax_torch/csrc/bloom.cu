@@ -57,9 +57,11 @@
 // its first lane, up to d for a solid one. That sector floor, not the few
 // bytes per k-mer of the byte bound, is what a kernel can approach; the
 // addressing's ~130 int32 operations per k-mer sit under it. K1r reads
-// its rows once (4W bytes and a valid byte a row) and has the same sector
-// floor on its 2^local_bits shard; with no extraction or canonical form,
-// its addressing is the two hashes (~50 operations a k-mer at W = 2).
+// a valid byte a row and the 4W bytes of a valid row only (the sentinel
+// slots, most of the capacity at route_safety 4, are never read) and has
+// the same sector floor on its 2^local_bits shard; with no extraction or
+// canonical form, its addressing is the two hashes (~50 operations a k-mer
+// at W = 2).
 
 #include "kmerax.cuh"
 
@@ -189,7 +191,8 @@ __global__ void bloom_insert_rows_kernel(int32_t* __restrict__ table,
     const bool ok = rvalid[i] != 0;
     uint32_t words[W];
 #pragma unroll
-    for (int wi = 0; wi < W; ++wi) words[wi] = rows[i * W + wi];
+    for (int wi = 0; wi < W; ++wi)          // a sentinel slot's words unread
+        words[wi] = ok ? rows[i * W + wi] : KMERAX_FULL_MASK;
     if (ok) {
         const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
         const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
@@ -203,7 +206,7 @@ __global__ void bloom_insert_rows_kernel(int32_t* __restrict__ table,
         uint32_t* out = pending + (off + i) * W;
 #pragma unroll
         for (int wi = 0; wi < W; ++wi)
-            out[wi] = ok ? words[wi] : KMERAX_FULL_MASK;
+            out[wi] = words[wi];
     }
 }
 

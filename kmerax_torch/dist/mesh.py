@@ -17,17 +17,21 @@ A mesh on `cuda` never falls back to gloo or to the CPU.
 multiprocessing, a `file://` rendezvous in a temp directory), runs a
 function on each, and returns rank 0's result. A process that is a rank of
 a mesh finds it with `current`.
+
+Rank 0 alone runs the host graph, the alignment and the writes while the
+other ranks wait in the next collective, so every group gets
+COLLECTIVE_TIMEOUT, not the backends' default (10 minutes for NCCL's
+watchdog), which a large genome's host graph would outlast.
 """
 
 from __future__ import annotations
 
-import importlib
 import os
 import pickle
-import sys
 import tempfile
 import time
 from dataclasses import dataclass
+from datetime import timedelta
 
 import torch
 import torch.distributed as dist
@@ -35,11 +39,8 @@ import torch.distributed as dist
 AXIS_DATA = "data"
 AXIS_BUCKET = "bucket"
 
-# module attributes a launch copies from rank 0 back into the launching
-# process, so a caller reads them after a mesh run as after a local one
-OBSERVED = ("kmerax_torch.pipeline.count.LAST_COUNT_RETRIES",
-            "kmerax_torch.pipeline.count.LAST_ROUTE_SAFETY",
-            "kmerax_torch.pipeline.correct.LAST_CORRECT_PATH")
+# how long a rank waits in a collective for the others
+COLLECTIVE_TIMEOUT = timedelta(hours=12)
 
 
 @dataclass(frozen=True)
@@ -146,15 +147,17 @@ def init_mesh(spec: MeshSpec, device, rank: int, world: int,
     else:
         raise ValueError(f"unsupported device {dev}")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=COLLECTIVE_TIMEOUT)
     D, S = spec.data, spec.bucket
     data_group = bucket_group = None
     for s in range(S):
-        g = dist.new_group([d * S + s for d in range(D)])
+        g = dist.new_group([d * S + s for d in range(D)],
+                           timeout=COLLECTIVE_TIMEOUT)
         if rank % S == s:
             data_group = g
     for d in range(D):
-        g = dist.new_group([d * S + s for s in range(S)])
+        g = dist.new_group([d * S + s for s in range(S)],
+                           timeout=COLLECTIVE_TIMEOUT)
         if rank // S == d:
             bucket_group = g
     _CURRENT = Mesh(spec, dev, rank, data_group, bucket_group)
@@ -190,15 +193,6 @@ def is_writer() -> bool:
     return _CURRENT is None or _CURRENT.rank == 0
 
 
-def _observed() -> dict:
-    out = {}
-    for name in OBSERVED:
-        mod, attr = name.rsplit(".", 1)
-        if mod in sys.modules:
-            out[name] = getattr(sys.modules[mod], attr)
-    return out
-
-
 def _worker(rank, spec, device, init_method, tmpdir, fn, args):
     if torch.device(device).type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec.ndev))
@@ -215,7 +209,7 @@ def _worker(rank, spec, device, init_method, tmpdir, fn, args):
         raise
     if rank == 0:
         with open(os.path.join(tmpdir, "result.pkl"), "wb") as f:
-            pickle.dump((result, _observed()), f)
+            pickle.dump(result, f)
     shutdown()
 
 
@@ -260,8 +254,4 @@ def launch(spec: MeshSpec, device, fn, *args):
                     p.terminate()
                 p.join()
         with open(os.path.join(tmpdir, "result.pkl"), "rb") as f:
-            result, observed = pickle.load(f)
-    for name, value in observed.items():
-        mod, attr = name.rsplit(".", 1)
-        setattr(importlib.import_module(mod), attr, value)
-    return result
+            return pickle.load(f)

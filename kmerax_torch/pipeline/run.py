@@ -11,6 +11,7 @@ from typing import Optional
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.dist.mesh import is_writer
 from kmerax_torch.graph.unitig import assemble_to_fasta
+from kmerax_torch.pipeline import correct as _correct, count as _count
 from kmerax_torch.pipeline.align import run_align
 from kmerax_torch.pipeline.correct import run_correct
 from kmerax_torch.pipeline.count import run_count
@@ -49,3 +50,25 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
     finally:
         m.close()
     return result
+
+
+def observed() -> dict:
+    """The last run's observables: the mesh count's route retries and end
+    route safety, and the mesh correction's path."""
+    return {"LAST_COUNT_RETRIES": _count.LAST_COUNT_RETRIES,
+            "LAST_ROUTE_SAFETY": _count.LAST_ROUTE_SAFETY,
+            "LAST_CORRECT_PATH": _correct.LAST_CORRECT_PATH}
+
+
+def restore_observed(obs: dict) -> None:
+    """Set `observed()` of another process (a mesh's rank 0) in this one,
+    so a caller reads them after a mesh run as after a local one."""
+    _count.LAST_COUNT_RETRIES = obs["LAST_COUNT_RETRIES"]
+    _count.LAST_ROUTE_SAFETY = obs["LAST_ROUTE_SAFETY"]
+    _correct.LAST_CORRECT_PATH = obs["LAST_CORRECT_PATH"]
+
+
+def with_observed(fn, *args):
+    """(fn(*args), observed() after it): what a mesh rank hands back
+    through kmerax_torch.dist.mesh.launch."""
+    return fn(*args), observed()

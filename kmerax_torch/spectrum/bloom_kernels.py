@@ -32,7 +32,7 @@ import torch
 
 from kmerax_torch.core.codec import M32, canonical_words, num_words, \
     to_u32_bits
-from kmerax_torch.core.hash import bloom_blocks_lanes
+from kmerax_torch.core.hash import bloom_block, bloom_blocks_lanes
 from kmerax_torch.core.kmers import extract_kmers
 from kmerax_torch.core.minimizer import buckets
 from kmerax_torch.spectrum.exact import mask_invalid
@@ -53,6 +53,14 @@ def _scheme_buckets(params: BloomParams, canon_words: torch.Tensor):
         return None
     return buckets(canon_words, params.k, params.minimizer_m,
                    1 << params.log2_buckets)
+
+
+def blocks(params: BloomParams, canon_words: torch.Tensor) -> torch.Tensor:
+    """Each k-mer's global block (int64) under the params' bucket
+    scheme."""
+    return bloom_block(canon_words, params.log2_width,
+                       _scheme_buckets(params, canon_words),
+                       params.log2_buckets)
 
 
 def blocks_lanepack(params: BloomParams, canon_words: torch.Tensor):

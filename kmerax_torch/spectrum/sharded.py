@@ -30,11 +30,9 @@ import torch
 import torch.distributed as dist
 
 from kmerax_torch.core.codec import M32, canonical_words, to_u32_bits
-from kmerax_torch.core.hash import hash_bucket
 from kmerax_torch.core.kmers import extract_kmers
-from kmerax_torch.core.minimizer import minimizers
 from kmerax_torch.spectrum.bloom import BloomParams
-from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+from kmerax_torch.spectrum.bloom_kernels import blocks, blocks_lanepack, \
     bloom_insert_rows
 from kmerax_torch.spectrum.exact import SENTINEL_WORD, np_merge_counted
 
@@ -64,15 +62,10 @@ class ShardedParams:
 
 
 def shard_of(canon_flat: torch.Tensor, sp: ShardedParams) -> torch.Tensor:
-    """shard = bucket >> (TB - SB): the owner of the k-mer's contiguous
-    segment range. canon_flat (n, W) int64 words -> (n,) int64."""
-    b = sp.bloom
-    if b.bucket_scheme == "hash":
-        bucket = hash_bucket(canon_flat, b.log2_width, b.log2_buckets)
-    else:
-        bucket = minimizers(canon_flat, b.k, b.minimizer_m) \
-            % (1 << b.log2_buckets)
-    return bucket >> (b.log2_buckets - sp.shard_bits)
+    """shard = bucket >> (TB - SB), the owner of the k-mer's contiguous
+    segment range: the top shard_bits bits of its global block, under
+    either scheme. canon_flat (n, W) int64 words -> (n,) int64."""
+    return blocks(sp.bloom, canon_flat) >> (sp.local_bits - 7)
 
 
 def route_prep(canon_flat: torch.Tensor, valid_flat: torch.Tensor,

@@ -201,8 +201,8 @@ def test_bench_scaling_not_ported(argv):
 def test_mesh_override_not_ported(tmp_path, monkeypatch):
     """A mesh override is ported now: config 4 with mesh_data=2 runs its
     stages on a 2 x 1 gloo mesh of spawned ranks, says so in its report,
-    and writes the 1 x 1 run's FASTQ bytes; the p16 counters stay
-    refused."""
+    and writes the 1 x 1 run's FASTQ bytes; its wall is rank 0's stages,
+    the ranks' launch reported apart; the p16 counters stay refused."""
     from kmerax_torch.dist import mesh as dmesh
 
     monkeypatch.setattr(dmesh, "LAUNCH_TIMEOUT", 300)
@@ -211,6 +211,8 @@ def test_mesh_override_not_ported(tmp_path, monkeypatch):
     two = run_config(4, scale=0.02, workdir=str(tmp_path / "two"),
                      overrides={"mesh_data": 2}, device="cpu")
     assert one["mesh"] == [1, 1] and two["mesh"] == [2, 1]
+    assert two["wall_s"] > 0 and two["launch_s"] > 0
+    assert two["reads_per_s"] == two["reads"] / two["wall_s"]
     assert two["accuracy"] == one["accuracy"]
     outs = sorted(f for f in os.listdir(tmp_path / "one")
                   if f.startswith("corrected_"))
