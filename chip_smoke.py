@@ -26,8 +26,12 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      the routed-row insert of a mesh count, on the same config-1 batches at
      k = 25, 31, 63 under both schemes: the k-mers routed to S = 1, 2, 4
      and 8 range shards by the port's plain route prep, each shard
-     inserted by K1r == its plain version exactly, and the S slices,
-     concatenated, == K1's whole table (DESIGN.md §12); timed at S = 1.
+     inserted by K1r == its plain version exactly (the slice, the valid
+     rows it appends to pending, their count), and the S slices,
+     concatenated, == K1's whole table (DESIGN.md §12); at k=31, S=1 also
+     on valid masks route_prep does not make; timed at S = 1, one shard of
+     each S at each number of routed slots a thread, and at S = 1 on the
+     same rows sorted by block and grouped by 512 and 256 MiB region.
   3. small goldens: the port's pipeline on the card, under the hash and
      the minimizer bucket scheme, `correct --use-exact`, and `pipeline --k2
      63` must write corrected FASTQ and unitig FASTA bytes equal to the
@@ -61,7 +65,8 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      then the mesh count's driver (pipeline/count.py::run_count_sharded)
      on the same reads over a world-size-1 NCCL group, its table, host
      spectrum, histogram and threshold byte-equal to run_count's, with
-     its wall, retries and K1r launches. A mesh of more ranks than cards
+     its wall and host merges beside run_count's, retries and K1r
+     launches (one a batch). A mesh of more ranks than cards
      on cuda must raise the JAX package's "mesh DxS needs N devices, have
      M"; a multi-rank mesh runs only where there are cards for it (with
      two cards or more, `count --mesh-bucket S` through the CLI, its
@@ -575,16 +580,133 @@ def _rows_ops(p, n_kmers, lanes):
 SHARDS = (1, 2, 4, 8)
 
 
+def _k1r_orders(t, rows, rv, p, lb, pend, off) -> dict:
+    """K1r's own device ms per launch, and index_add_'s at the same lanes,
+    on the same routed rows in three orders: as routed; sorted by their
+    local block; grouped (stably) into the slice's 512 MiB and its 256 MiB
+    regions. Valid rows lead the sorted and grouped orders, the sentinel
+    slots follow: only the order in which the counter rows are visited
+    differs."""
+    import torch
+    from kmerax_torch.core.codec import M32
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_insert_rows
+
+    blk, lp = blocks_lanepack(p, rows.long() & M32)
+    blk = blk.long() & ((1 << (lb - 7)) - 1)
+    lanes = torch.stack([(lp.long() >> (7 * j)) & 127
+                         for j in range(p.num_hashes)], -1)
+    # a 2^s MiB region holds 2^(s + 11) blocks of 512 bytes
+    keys = {"routed": None, "sorted by block": blk,
+            "512 MiB regions": blk >> 20, "256 MiB regions": blk >> 19}
+    out = {}
+    for name, key in keys.items():
+        if key is None:
+            r, v, b, ln = rows, rv, blk, lanes
+        else:
+            o = torch.argsort(torch.where(rv, key, 1 << 40), stable=True)
+            r, v, b, ln = rows[o].contiguous(), rv[o], blk[o], lanes[o]
+        idx = (b[:, None] * 128 + ln)[v].reshape(-1)
+        ones = torch.ones(idx.numel(), dtype=torch.int32, device=t.device)
+        ms = _kernel_ms(lambda: bloom_insert_rows(t, r, v, p, lb, pend, off),
+                        "bloom_insert_rows")
+        lib, _ = _per_launch_ms(lambda: t.index_add_(0, idx, ones))
+        out[name] = {"kernel_ms": ms, "index_add_ms": lib}
+        del r, v, b, ln, idx, ones
+    return out
+
+
+def _k1r_by_spt(t, rows, rv, p, lb, pend, off) -> dict:
+    """K1r's own device ms per launch on these rows with each number of
+    routed slots a thread it takes (1, 2, 4), against the one
+    `k1r_slots_per_thread` picks for them."""
+    from kmerax_torch.spectrum import bloom_kernels as bk
+
+    pick = bk.k1r_slots_per_thread
+    out = {"picked": pick(rows.shape[0])}
+    try:
+        for spt in (1, 2, 4):
+            bk.k1r_slots_per_thread = lambda n, spt=spt: spt
+            out[spt] = _kernel_ms(
+                lambda: bk.bloom_insert_rows(t, rows, rv, p, lb, pend, off),
+                "bloom_insert_rows")
+    finally:
+        bk.k1r_slots_per_thread = pick
+    return out
+
+
+def _k1r_same(rows, rv, p, lb, off, device, what: str):
+    """K1r and its plain version on the same routed rows, each into a
+    fresh slice and a sentinel-filled pending buffer of off + N rows:
+    slices, whole pending buffers and returned counts equal, the count ==
+    the valid rows. Returns (the kernel's slice, max abs difference)."""
+    import torch
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert_rows, \
+        bloom_insert_rows_plain
+    from kmerax_torch.spectrum.exact import sentinel_rows
+
+    outs = []
+    for fn in (bloom_insert_rows, bloom_insert_rows_plain):
+        t = torch.zeros(1 << lb, dtype=torch.int32, device=device)
+        pend = sentinel_rows(off + rows.shape[0], rows.shape[1], device)
+        n = int(fn(t, rows, rv, p, lb, pend, off))
+        torch.cuda.synchronize()
+        outs.append((t, pend, n))
+    (tk, pk, nk), (tp, pp, np_) = outs
+    err = max(int((tk - tp).abs().max()),
+              int((pk.long() - pp.long()).abs().max()), abs(nk - np_))
+    if not (torch.equal(tk, tp) and torch.equal(pk, pp)
+            and nk == np_ == int(rv.sum())):
+        raise AssertionError(f"K1r differs from plain at {what} (max "
+                             f"{err}; counts {nk} / {np_})")
+    return tk, err
+
+
+def _k1r_patterns(rows, rv, p, lb, device, scheme) -> int:
+    """K1r == its plain version on valid masks that route_prep does not
+    make: the routed slots shuffled, every slot valid, none valid, and the
+    rows from slot 1 on (tiles that start mid-block of route_prep's
+    layout), each with every number of routed slots a thread the kernel
+    takes. Returns the max abs difference."""
+    import torch
+    from kmerax_torch.spectrum import bloom_kernels as bk
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    perm = torch.randperm(rows.shape[0], generator=g, device=device)
+    cases = {"shuffled": (rows[perm].contiguous(), rv[perm]),
+             "all valid": (rows, torch.ones_like(rv)),
+             "none valid": (rows, torch.zeros_like(rv)),
+             "from slot 1": (rows[1:], rv[1:])}
+    err, pick = 0, bk.k1r_slots_per_thread
+    try:
+        for spt in (1, 2, 4):
+            bk.k1r_slots_per_thread = lambda n, spt=spt: spt
+            for name, (r, v) in cases.items():
+                _, e = _k1r_same(r, v, p, lb, 5, device,
+                                 f"k={p.k}, {name}, {spt} slots a thread, "
+                                 f"{scheme} scheme")
+                err = max(err, e)
+    finally:
+        bk.k1r_slots_per_thread = pick
+    num(f"phase2 K1r == plain at k={p.k}, S=1, {scheme} scheme, on masks "
+        f"route_prep does not make ({', '.join(cases)}), at 1, 2 and 4 "
+        f"routed slots a thread")
+    return err
+
+
 def _check_k1r(rng, device, scheme="hash"):
     """K1r == its plain version on the routed rows of one config-1 batch
     (4096 x 160 int8, 2^29 counters in all) at k = 25, 31 and 63 under the
     bucket `scheme`: the batch's k-mers routed by the plain route prep
     (spectrum/sharded.py::route_prep, route_safety 4, one sender) to S =
-    1, 2, 4 and 8 shards; each shard's slice and its pending rows (from a
-    nonzero row offset) equal, and the S slices, concatenated, equal K1's
-    whole table on the same batch. Returns the kernel record at k=31 and
-    S=1 (a one-rank mesh's shapes, timed), and under the hash scheme each
-    S's kernel time on one shard's rows."""
+    1, 2, 4 and 8 shards; each shard's slice, its pending buffer (the
+    valid rows compacted from a nonzero row offset, the rest untouched)
+    and the returned count equal, and the S slices, concatenated, equal
+    K1's whole table on the same batch; at k=31, S=1 also on valid masks
+    route_prep does not make (`_k1r_patterns`). Returns the kernel record
+    at k=31 and S=1 (a one-rank mesh's shapes, timed, with the three
+    orders of `_k1r_orders` under the hash scheme), and under the hash
+    scheme each S's kernel time on one shard's rows."""
     import numpy as np
     import torch
     from kmerax_torch.core.codec import M32, canonical_words, num_words
@@ -596,7 +718,7 @@ def _check_k1r(rng, device, scheme="hash"):
     from kmerax_torch.spectrum.sharded import ShardedParams, route_prep
 
     B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
-    rec, err_max, ms_by_shards = None, 0, {}
+    rec, err_max, ms_by_shards, ms_by_spt = None, 0, {}, {}
     for k in (25, 31, 63):
         p = _params(k, scheme)
         W = num_words(k)
@@ -618,23 +740,11 @@ def _check_k1r(rng, device, scheme="hash"):
             for s in range(S):
                 blk = send[s * cap:(s + 1) * cap]
                 rows, rv = blk[:, :W].contiguous(), blk[:, W] != 0
-                outs = []
-                for fn in (bloom_insert_rows, bloom_insert_rows_plain):
-                    t = torch.zeros(1 << lb, dtype=torch.int32,
-                                    device=device)
-                    pend = sentinel_rows(2 * cap, W, device)
-                    fn(t, rows, rv, p, lb, pend, cap)
-                    torch.cuda.synchronize()
-                    outs.append((t, pend))
-                (tk, pk), (tp, pp) = outs
-                err = max(err, int((tk - tp).abs().max()),
-                          int((pk.long() - pp.long()).abs().max()))
-                if not (torch.equal(tk, tp) and torch.equal(pk, pp)):
-                    raise AssertionError(
-                        f"K1r differs from plain at k={k}, S={S}, shard "
-                        f"{s}, {scheme} scheme (max {err})")
+                tk, e = _k1r_same(rows, rv, p, lb, cap, device,
+                                  f"k={k}, S={S}, shard {s}, {scheme} "
+                                  f"scheme")
+                err = max(err, e)
                 slices.append(tk)
-                del tp, pp, pk
             cat = torch.cat(slices)
             if not torch.equal(cat, whole):
                 raise AssertionError(f"K1r's {S} slices != K1's table at "
@@ -649,13 +759,18 @@ def _check_k1r(rng, device, scheme="hash"):
             if k != 31 or (S != 1 and scheme != "hash"):
                 continue
             rows, rv = send[:cap, :W].contiguous(), send[:cap, W] != 0
+            if S == 1:
+                err_max = max(err_max, _k1r_patterns(rows, rv, p, lb,
+                                                     device, scheme))
             t = torch.zeros(1 << lb, dtype=torch.int32, device=device)
             pend = sentinel_rows(2 * cap, W, device)
+            if scheme == "hash":
+                ms_by_spt[S] = _k1r_by_spt(t, rows, rv, p, lb, pend, cap)
             if S != 1:
                 ms_by_shards[S] = _kernel_ms(
                     lambda: bloom_insert_rows(t, rows, rv, p, lb, pend,
                                               cap),
-                    "bloom_insert_rows_kernel")
+                    "bloom_insert_rows")
                 del t, pend
                 continue
             # the counters and sectors these rows touch, and the one
@@ -674,11 +789,12 @@ def _check_k1r(rng, device, scheme="hash"):
                 lambda: bloom_insert_rows(t, rows, rv, p, lb, pend, cap),
                 lambda: bloom_insert_rows_plain(t, rows, rv, p, lb, pend,
                                                 cap),
-                "bloom_insert_rows_kernel")
+                "bloom_insert_rows")
             n_rows, n_ok = rows.shape[0], int(rv.sum())
-            # the valid byte of every row, the words of the valid rows
-            # only (a sentinel slot's are never needed), every pending row
-            io_bytes = n_rows + 4 * W * n_ok + 4 * W * n_rows
+            # the valid byte of every slot, the words of the valid rows
+            # (a sentinel slot's are never needed) and their pending rows:
+            # only the valid rows are written
+            io_bytes = n_rows + 4 * W * n_ok + 4 * W * n_ok
             rec = _record("bloom_insert_rows", "kmerax_torch/csrc/bloom.cu",
                           "kmerax/spectrum/pallas_bloom.py:42", err, times,
                           io_bytes + 8 * lanes,
@@ -690,6 +806,12 @@ def _check_k1r(rng, device, scheme="hash"):
                        f"valid) into 2^{lb} counters, pending rows from row "
                        f"{cap}; {lanes} counter lanes in {sectors} sectors",
                        rec)
+            if scheme == "hash":
+                rec["ms_by_order"] = _k1r_orders(t, rows, rv, p, lb, pend,
+                                                 cap)
+                num(f"phase2 K1r at k=31, S=1, hash scheme, the same rows in "
+                    f"three orders (its own device ms, and index_add_'s at "
+                    f"the same lanes): {rec['ms_by_order']}")
             del t, pend
         del whole, flat, fvalid, send, bases
         torch.cuda.empty_cache()
@@ -697,8 +819,10 @@ def _check_k1r(rng, device, scheme="hash"):
     if scheme == "hash":
         num(f"phase2 K1r at k=31, hash scheme, its own device ms per launch "
             f"by shard count S (one shard's routed rows, S * cap / S): "
-            f"{ms_by_shards}")
+            f"{ms_by_shards}; by S and routed slots a thread (the wrapper "
+            f"takes k1r_slots_per_thread's): {ms_by_spt}")
         rec["ms_by_shards"] = ms_by_shards
+        rec["ms_by_spt"] = ms_by_spt
     return rec
 
 
@@ -1100,7 +1224,7 @@ def phase_golden(workdir: str, device=DEVICE):
                                  f"minimizer scheme")
     # the mesh count's driver under the minimizer scheme (K1r's minimizer
     # instantiation on a path), one rank over NCCL
-    mz, _, wall = _sharded_vs_one(
+    mz, _, wall, _ = _sharded_vs_one(
         cfg.replace(bucket_scheme="minimizer"), [path])
     say(f"phase3 golden, minimizer scheme: run_count_sharded (world-size-1 "
         f"NCCL) == run_count, {wall:.2f} s; launches {mz}")
@@ -2081,13 +2205,18 @@ def phase_bench(workdir: str, recs=None):
     cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     # keep the acceptance run's count (its arrays, copied to the host at
-    # the end of run_count) for the sharded driver's check below
+    # the end of run_count, its wall and its host merges) for the sharded
+    # count's check below
     import kmerax_torch.pipeline.count as count
     real_count, kept = count.run_count, []
 
     def keep_count(*a, **kw):
+        t0 = time.perf_counter()
         state = real_count(*a, **kw)
-        kept.append(_count_arrays(state))
+        torch.cuda.synchronize()
+        kept.append({"wall": time.perf_counter() - t0,
+                     "flushes": count.LAST_COUNT_FLUSHES,
+                     "want": _count_arrays(state)})
         return state
     count.run_count = keep_count
     try:
@@ -2149,7 +2278,7 @@ def _sharded_vs_one(cfg, paths, want=None):
     1 x 1) on the same reads (`want`: its `_count_arrays`, else it runs
     here): table, host spectrum, histogram and threshold byte-equal, and
     K1r launched once a batch (and once a replay). Returns (its launches,
-    its arrays, its wall)."""
+    its arrays, its wall, its host merges)."""
     import torch
     import kmerax_torch.pipeline.count as count
     from kmerax_torch.dist import mesh as dmesh
@@ -2169,6 +2298,7 @@ def _sharded_vs_one(cfg, paths, want=None):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(cuda.LAUNCHES)
+            flushes = count.LAST_COUNT_FLUSHES
             got = _count_arrays(state)
             if not torch.equal(state.sharded_table, state.bloom_table):
                 raise AssertionError("the one-rank slice != its table")
@@ -2182,28 +2312,32 @@ def _sharded_vs_one(cfg, paths, want=None):
     if launches["bloom_insert_rows"] != n_batches + count.LAST_COUNT_RETRIES:
         raise AssertionError(f"K1r launched {launches['bloom_insert_rows']}"
                              f" times for {n_batches} batches")
-    return launches, got, wall
+    return launches, got, wall, flushes
 
 
-def _sharded_count(rep: dict, want: dict) -> dict:
+def _sharded_count(rep: dict, one: dict) -> dict:
     """The mesh count's driver on config 2's reads (`_sharded_vs_one`),
-    against `want`, the arrays of the acceptance run's own run_count.
-    Returns its launches (path "config2_sharded_count")."""
+    against `one`, the acceptance run's own run_count in this call: its
+    arrays (`want`), its wall and its host merges. Returns its launches
+    (path "config2_sharded_count")."""
     import kmerax_torch.pipeline.count as count
     from kmerax_torch.bench.acceptance import CONFIGS, sized_config
 
     cfg = sized_config(CONFIGS[2], rep["genome_len"], rep["reads"])
     paths = [os.path.join(rep["workdir"], f"reads_{i}.fastq.gz")
              for i in (1, 2)]
-    launches, got, wall = _sharded_vs_one(cfg, paths, want)
+    want = one["want"]
+    launches, got, wall, flushes = _sharded_vs_one(cfg, paths, want)
     num(f"phase7 sharded count driver (world-size-1 NCCL, mesh 1 x 1) on "
         f"config 2's {rep['reads']} reads, k={cfg.k}, 2^"
         f"{cfg.bloom_log2_width} counters: table ({len(got['table'])} "
         f"counters), host spectrum ({len(got['uniq'])} distinct), histogram "
         f"and threshold {got['threshold']} byte-equal to run_count's; "
-        f"count wall {wall:.2f} s (the acceptance run's count above), "
-        f"{got['kmers'] / wall:.1f} k-mers/s; route retries "
-        f"{count.LAST_COUNT_RETRIES}, route_safety at the end "
+        f"count wall {wall:.2f} s against the acceptance run's run_count "
+        f"{one['wall']:.2f} s in this call ({wall / one['wall']:.3f}x), "
+        f"{got['kmers'] / wall:.1f} k-mers/s; host merges of the pending "
+        f"buffer {flushes} against run_count's {one['flushes']}; route "
+        f"retries {count.LAST_COUNT_RETRIES}, route_safety at the end "
         f"{count.LAST_ROUTE_SAFETY}; launches {launches}")
     _mesh_count(cfg, paths, want, rep["workdir"])
     return {"config2_sharded_count": launches}

@@ -42,13 +42,23 @@
 // kmerax/spectrum/sharded.py::sharded_insert_step calls it on a mesh. It
 // takes the canonical k-mer rows that the bucket all-to-all brought to this
 // rank ((N, W) 32-bit words, the sentinel row where invalid, and an (N,)
-// valid mask) and adds them into this rank's 2^local_bits range shard of the
-// table: the block comes from the GLOBAL table's addressing (kmerax_block
-// with the global block mask, so the minimizer scheme's bucket bits land
-// where they do in the whole table), then keeps its low local_bits - 7 bits
-// (DESIGN.md §12: the shard bits are the top bits of the block). One thread
-// per row; a probe is one atomicAdd, as in K1. With a pending buffer it also
-// writes the row (the sentinel where invalid) at row off + i.
+// valid mask) and adds the valid ones into this rank's 2^local_bits range
+// shard of the table: the block comes from the GLOBAL table's addressing
+// (kmerax_block with the global block mask, so the minimizer scheme's bucket
+// bits land where they do in the whole table), then keeps its low
+// local_bits - 7 bits (DESIGN.md §12: the shard bits are the top bits of
+// the block). With a pending buffer it writes the valid rows only, compacted
+// in slot order from row off (rows[rvalid]), and it reports their count.
+// Most slots are empty (route_safety 4 at one sender: a fifth are valid),
+// so it works on the valid rows only, in one launch: a block takes a tile
+// of 256 spt slots (spt = 2 or 4 routed slots a thread, the wrapper's
+// choice, so that a launch has ~1,000 blocks or more), turns its valid
+// bytes into a bit mask a thread, lists the
+// tile's valid slots in shared memory in order (a block scan), and one warp
+// finds the tile's offset among all valid rows by a decoupled look-back
+// over the tiles before it while the other warps hash and insert the
+// listed rows; then the block copies their words to pending. The order is
+// the slots' whatever the schedule, so the pending rows are deterministic.
 //
 // What bounds them on an H100: the table is 2^log2_width int32 counters,
 // 2 GiB at log2_width=29, far above the 50 MB L2, so each k-mer touches
@@ -57,11 +67,14 @@
 // its first lane, up to d for a solid one. That sector floor, not the few
 // bytes per k-mer of the byte bound, is what a kernel can approach; the
 // addressing's ~130 int32 operations per k-mer sit under it. K1r reads
-// a valid byte a row and the 4W bytes of a valid row only (the sentinel
-// slots, most of the capacity at route_safety 4, are never read) and has
-// the same sector floor on its 2^local_bits shard; with no extraction or
-// canonical form, its addressing is the two hashes (~50 operations a k-mer
-// at W = 2).
+// a valid byte a slot and the 4W bytes of a valid row (again, from cache,
+// for its pending copy), writes 4W bytes a valid row, and has the same
+// sector floor on its 2^local_bits shard; with no extraction or canonical
+// form, its addressing is the two hashes (~50 operations a k-mer at W = 2).
+// Visiting the slice one region at a time does not pay on an H100: the
+// same rows sorted by block, or grouped by 256 or 512 MiB region, took
+// 0.82-0.90 of the routed order's time (chip_smoke._k1r_orders, NVIDIA
+// H100 80GB HBM3 at 700 W), so the rows are not binned.
 
 #include "kmerax.cuh"
 
@@ -177,37 +190,137 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
     }
 }
 
-template <int W, bool kMinimizer>
-__global__ void bloom_insert_rows_kernel(int32_t* __restrict__ table,
-                                         const uint32_t* __restrict__ rows,
-                                         const uint8_t* __restrict__ rvalid,
-                                         int64_t N, int k, uint32_t block_mask,
-                                         uint32_t local_mask, int d, int m,
-                                         int log2_buckets,
-                                         uint32_t* __restrict__ pending,
-                                         int64_t off) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= N) return;
-    const bool ok = rvalid[i] != 0;
-    uint32_t words[W];
+// K1r's tiles: 256 threads and spt = 1, 2 or 4 routed slots a thread, up
+// to 1,024 slots a tile; the valid rows of a tile are listed in shared
+// memory in slot order
+constexpr int kMaxSlotsPerThread = 4;
+constexpr int kMaxTileSlots = kThreads * kMaxSlotsPerThread;
+
+// a tile's status word in the look-back: (epoch << 34) | (flag << 32) |
+// count, where the flag says whether the count is the tile's own valid rows
+// (kAggregate) or those of every tile up to and including it (kPrefix).
+// A word of another epoch (an earlier launch) is not ready yet.
+constexpr uint64_t kAggregate = 1, kPrefix = 2;
+
+static __device__ __forceinline__ uint64_t tile_word(uint32_t epoch,
+                                                     uint64_t flag,
+                                                     uint32_t count) {
+    return ((uint64_t)epoch << 34) | (flag << 32) | count;
+}
+
+// the exclusive prefix of this tile's valid rows over the tiles before it
+// (decoupled look-back, run by one warp): lane l reads the status of tile
+// tile-1-l, waits until every lane's is of this epoch, and sums the counts
+// down to the nearest inclusive prefix; if none is in the window it goes
+// 32 tiles further back. Tile 0's word is always a prefix.
+static __device__ int64_t look_back(const uint64_t* status, int tile,
+                                    uint32_t epoch, int lane) {
+    int64_t excl = 0;
+    for (int pred = tile - 1;; pred -= 32) {
+        const int i = pred - lane;
+        uint64_t s = tile_word(epoch, kPrefix, 0);      // before tile 0
+        bool ready;
+        do {
+            if (i >= 0)
+                s = *reinterpret_cast<const volatile uint64_t*>(status + i);
+            ready = (uint32_t)(s >> 34) == epoch;
+        } while (!__all_sync(KMERAX_FULL_MASK, ready));
+        const unsigned pre = __ballot_sync(KMERAX_FULL_MASK,
+                                           ((s >> 32) & 3u) == kPrefix);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        unsigned long long c = lane <= stop ? (uint32_t)s : 0u;
 #pragma unroll
-    for (int wi = 0; wi < W; ++wi)          // a sentinel slot's words unread
-        words[wi] = ok ? rows[i * W + wi] : KMERAX_FULL_MASK;
-    if (ok) {
+        for (int o = 16; o > 0; o >>= 1)
+            c += __shfl_xor_sync(KMERAX_FULL_MASK, c, o);
+        excl += c;
+        if (pre) return excl;
+    }
+}
+
+template <int W, bool kMinimizer>
+__global__ void __launch_bounds__(kThreads)
+bloom_insert_rows_kernel(int32_t* __restrict__ table,
+                         const uint32_t* __restrict__ rows,
+                         const uint8_t* __restrict__ rvalid, int64_t N,
+                         int k, uint32_t block_mask, uint32_t local_mask,
+                         int d, int m, int log2_buckets,
+                         uint32_t* __restrict__ pending, int64_t off,
+                         uint64_t* status, uint32_t epoch, int spt,
+                         int64_t* __restrict__ n_valid) {
+    __shared__ uint16_t idx[kMaxTileSlots];  // the tile's valid slots
+    __shared__ uint32_t warp_sum[kWarps];
+    __shared__ int64_t tile_off;             // valid rows before the tile
+    const int tile = blockIdx.x;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t base = (int64_t)tile * kThreads * spt;
+    // 1. this thread's spt valid bytes as a bit mask
+    const int64_t s0 = base + threadIdx.x * spt;
+    uint32_t bits = 0;
+    for (int b = 0; b < spt; ++b)
+        if (s0 + b < N && rvalid[s0 + b]) bits |= 1u << b;
+    // 2. block-wide exclusive scan of the counts; list the valid slots in
+    // slot order
+    const uint32_t cnt = __popc(bits);
+    uint32_t incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(KMERAX_FULL_MASK, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    uint32_t pos = incl - cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+        const uint32_t x = warp_sum[w];
+        pos += w < warp ? x : 0u;
+        total += x;
+    }
+    for (uint32_t b = bits; b; b &= b - 1)
+        idx[pos++] = (uint16_t)(threadIdx.x * spt + __ffs(b) - 1);
+    __syncthreads();
+    // 3. warp 0 publishes the tile's count and finds its offset while the
+    // other warps start the insert
+    if (warp == 0) {
+        int64_t excl = 0;
+        if (tile == 0) {
+            if (lane == 0)
+                *reinterpret_cast<volatile uint64_t*>(status) =
+                    tile_word(epoch, kPrefix, total);
+        } else {
+            if (lane == 0)
+                *reinterpret_cast<volatile uint64_t*>(status + tile) =
+                    tile_word(epoch, kAggregate, total);
+            excl = look_back(status, tile, epoch, lane);
+            if (lane == 0)
+                *reinterpret_cast<volatile uint64_t*>(status + tile) =
+                    tile_word(epoch, kPrefix, (uint32_t)(excl + total));
+        }
+        if (lane == 0) {
+            tile_off = excl;
+            if (tile == gridDim.x - 1) *n_valid = excl + total;
+        }
+    }
+    // 4. the insert: one valid row a thread, in list order
+    for (uint32_t j = threadIdx.x; j < total; j += kThreads) {
+        const uint32_t* row = rows + (base + idx[j]) * W;
+        uint32_t words[W];
+#pragma unroll
+        for (int wi = 0; wi < W; ++wi) words[wi] = row[wi];
         const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
         const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
         const uint32_t block = kmerax_block<W, kMinimizer>(
             words, k, h1, block_mask, m, log2_buckets) & local_mask;
         int32_t* trow = table + (size_t)block * 128;
-        for (int j = 0; j < d; ++j)
-            atomicAdd(trow + ((h2 >> (7 * j)) & 127u), 1);
+        for (int i = 0; i < d; ++i)
+            atomicAdd(trow + ((h2 >> (7 * i)) & 127u), 1);
     }
-    if (pending != nullptr) {
-        uint32_t* out = pending + (off + i) * W;
-#pragma unroll
-        for (int wi = 0; wi < W; ++wi)
-            out[wi] = words[wi];
-    }
+    if (pending == nullptr) return;          // block-uniform
+    __syncthreads();
+    // 5. the valid rows' words, consecutive from pending row off + tile_off
+    uint32_t* out = pending + (off + tile_off) * W;
+    for (uint32_t e = threadIdx.x; e < total * W; e += kThreads)
+        out[e] = rows[(base + idx[e / W]) * W + e % W];
 }
 
 cudaError_t smem_bytes(int L, size_t* smem) {
@@ -261,16 +374,24 @@ extern "C" int kmerax_bloom_insert_rows(int32_t* table, const int32_t* rows,
                                         int k, uint32_t block_mask,
                                         uint32_t local_mask, int d, int m,
                                         int log2_buckets, int32_t* pending,
-                                        int64_t off, cudaStream_t stream) {
+                                        int64_t off, int64_t* status,
+                                        uint32_t epoch, int spt,
+                                        int64_t* n_valid,
+                                        cudaStream_t stream) {
     if (N <= 0) return (int)cudaGetLastError();
+    if (spt < 1 || spt > kMaxSlotsPerThread || (spt & (spt - 1)))
+        return (int)cudaErrorInvalidValue;
     const auto* r = reinterpret_cast<const uint32_t*>(rows);
     uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
-    const unsigned grid = (unsigned)((N + kThreads - 1) / kThreads);
+    auto* st = reinterpret_cast<uint64_t*>(status);
+    const int64_t tile = (int64_t)kThreads * spt;
+    const unsigned grid = (unsigned)((N + tile - 1) / tile);
     return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
         bloom_insert_rows_kernel<decltype(w)::value, decltype(mz)::value>
             <<<grid, kThreads, 0, stream>>>(table, r, rvalid, N, k,
                                             block_mask, local_mask, d, m,
-                                            log2_buckets, pend, off);
+                                            log2_buckets, pend, off, st,
+                                            epoch, spt, n_valid);
         return cudaGetLastError();
     });
 }

@@ -55,6 +55,9 @@ REPLICATE_TABLE_BUDGET = 1 << 29        # 512 MB
 # baseline in steady state)
 LAST_COUNT_RETRIES = 0
 LAST_ROUTE_SAFETY = None
+# host merges of the pending buffer in the last count, one-device or mesh
+# (this rank's)
+LAST_COUNT_FLUSHES = 0
 
 
 @dataclass
@@ -152,6 +155,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     if cfg.mesh_data * cfg.mesh_bucket > 1:
         return run_count_sharded(cfg, paths, device=device, k=k,
                                  metrics=metrics)
+    global LAST_COUNT_FLUSHES
     k = k or cfg.k
     m = metrics or MetricsWriter(None)
     params, exact_flush, P, pend_rows = _count_steps(cfg, k)
@@ -166,6 +170,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
 
     n_reads = 0
     n_kmers = torch.zeros((), dtype=torch.int64, device=device)
+    LAST_COUNT_FLUSHES = 0
     m.stage_start("count")
     for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
         bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
@@ -174,10 +179,12 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
             off += pend_rows
             if off == P:
                 host_ex = exact_flush(*host_ex, pending, off)
+                LAST_COUNT_FLUSHES += 1
                 off = 0
         n_reads += batch.n
     if host_ex is not None and off > 0:
         host_ex = exact_flush(*host_ex, pending, off)
+        LAST_COUNT_FLUSHES += 1
     del pending
     n_kmers = int(n_kmers)
     host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
@@ -218,8 +225,9 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
 
     Every rank parses the same inputs and counts its rows of each batch
     (int8 on the device): route to the bucket owners, K1r into the owner's
-    partial slice, the routed raw rows into its pending buffer, which the
-    host merges at wraparound and at the end. A route overflow anywhere
+    partial slice, the valid routed rows appended to its pending buffer,
+    which the host merges when a batch's worst case (recv_rows) no longer
+    fits and at the end. A route overflow anywhere
     makes the batch a no-op everywhere; the capacity then doubles (up to 4S)
     and the batch replays, and after 8 clean batches it halves back toward
     the baseline. At the end the slices merge over "data" (kept as
@@ -236,7 +244,7 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
         sharded_insert_step,
     )
 
-    global LAST_COUNT_RETRIES, LAST_ROUTE_SAFETY
+    global LAST_COUNT_RETRIES, LAST_ROUTE_SAFETY, LAST_COUNT_FLUSHES
     k = k or cfg.k
     m = metrics or MetricsWriter(None)
     mesh = mesh or dmesh.current(cfg)
@@ -256,23 +264,27 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
         # buffer ~cap/2 raw rows globally per flush (flat per-batch cost)
         pend_m = max(1, (cfg.exact_capacity // 2) // (step_rows * D * S))
         pend_rows = pend_m * step_rows
-        pending = sentinel_rows(pend_rows, w, device)
+        # K1r appends valid rows only; rows past `off` are never read
+        pending = torch.empty((pend_rows, w), dtype=torch.int32,
+                              device=device)
     table = torch.zeros(sp.bloom.width // S, dtype=torch.int32,
                         device=device)
     step = sharded_insert_step(sp, mesh, k)
     host_ex = (np.zeros((0, w), np.uint32), np.zeros(0, np.int64))
 
     def flush(pending, off):
+        global LAST_COUNT_FLUSHES
         nonlocal host_ex
         raw = flush_pending_local(pending, off)
         host_ex = np_merge_counted(
             np.concatenate([host_ex[0], raw], axis=0),
             np.concatenate([host_ex[1], np.ones(len(raw), np.int64)]))
+        LAST_COUNT_FLUSHES += 1
         log.info("count[mesh]: flushed %d raw rows (%d distinct resident)",
                  len(raw), len(host_ex[0]))
 
     n_reads = n_kmers = off = 0
-    LAST_COUNT_RETRIES = 0
+    LAST_COUNT_RETRIES = LAST_COUNT_FLUSHES = 0
     # steps are cached per capacity level, and after DECAY_AFTER
     # overflow-free batches the capacity halves back toward baseline, so
     # one adversarial batch does not inflate the routed buffers for the
@@ -294,7 +306,8 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
                          // (step_rows * D * S))
             pend_rows = pend_m * step_rows
             pending = None                  # free before the new buffer
-            pending = sentinel_rows(pend_rows, w, device)
+            pending = torch.empty((pend_rows, w), dtype=torch.int32,
+                                  device=device)
         if new_safety not in steps_by_safety:
             steps_by_safety[new_safety] = sharded_insert_step(sp, mesh, k)
         step = steps_by_safety[new_safety]
@@ -303,7 +316,7 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
     for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
         bases = torch.from_numpy(batch.bases[rows].astype(np.int8)).to(device)
         while True:
-            nk, ovf = step(table, pending, bases, off)
+            nk, ovf, n_new = step(table, pending, bases, off)
             if ovf == 0:
                 break
             # route overflow: the step was a no-op on every rank — double
@@ -320,7 +333,9 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
             _set_safety(new_safety)
             clean_streak = 0
         if pending is not None:
-            off += step_rows
+            # the valid rows this batch appended; the next batch may append
+            # up to step_rows
+            off += n_new
             if off + step_rows > pend_rows:
                 flush(pending, off)
                 off = 0

@@ -53,10 +53,11 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
 
 
 def observed() -> dict:
-    """The last run's observables: the mesh count's route retries and end
-    route safety, and the mesh correction's path."""
+    """The last run's observables: the mesh count's route retries, end
+    route safety and host merges, and the mesh correction's path."""
     return {"LAST_COUNT_RETRIES": _count.LAST_COUNT_RETRIES,
             "LAST_ROUTE_SAFETY": _count.LAST_ROUTE_SAFETY,
+            "LAST_COUNT_FLUSHES": _count.LAST_COUNT_FLUSHES,
             "LAST_CORRECT_PATH": _correct.LAST_CORRECT_PATH}
 
 
@@ -65,6 +66,7 @@ def restore_observed(obs: dict) -> None:
     so a caller reads them after a mesh run as after a local one."""
     _count.LAST_COUNT_RETRIES = obs["LAST_COUNT_RETRIES"]
     _count.LAST_ROUTE_SAFETY = obs["LAST_ROUTE_SAFETY"]
+    _count.LAST_COUNT_FLUSHES = obs["LAST_COUNT_FLUSHES"]
     _correct.LAST_CORRECT_PATH = obs["LAST_CORRECT_PATH"]
 
 

@@ -17,8 +17,10 @@ is the flat (nrows * 128,) int32 counter array.
 K1r replaces the same Pallas kernel as a mesh count calls it on a range
 shard (kmerax/spectrum/sharded.py::sharded_insert_step, insert_pallas with
 `local_bits`): it takes the canonical k-mer rows the bucket all-to-all
-brought to this rank and adds them into this rank's 2^local_bits slice,
-addressed as in the global table and masked to the slice (DESIGN.md §12).
+brought to this rank and adds the valid ones into this rank's
+2^local_bits slice, addressed as in the global table and masked to the
+slice (DESIGN.md §12); it appends those rows alone, in order, to the
+pending buffer and returns their number.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback.
@@ -44,6 +46,9 @@ if TYPE_CHECKING:
 _CHUNK = 1 << 18                    # k-mers per one-hot slab (plain insert)
 _WARPS = 8                          # reads per K1 and K2 block (csrc/bloom.cu)
 _SMEM_LIMIT = 48 * 1024             # their shared memory without opt-in
+_K1R_THREADS = 256                  # threads per K1r block (bloom.cu)
+_K1R_BLOCKS = 1024                  # K1r blocks to aim for: ~8 an SM
+_K1R_STATUS: dict = {}              # (device, stream) -> (status, epoch)
 
 
 def _scheme_buckets(params: BloomParams, canon_words: torch.Tensor):
@@ -183,30 +188,55 @@ def bloom_insert_rows_plain(table: torch.Tensor, rows: torch.Tensor,
                             rvalid: torch.Tensor, params: BloomParams,
                             local_bits: int,
                             pending: Optional[torch.Tensor] = None,
-                            off: int = 0) -> None:
+                            off: int = 0) -> torch.Tensor:
     """Plain version of K1r, the JAX package's `insert(..., local_bits=)`:
     address the canonical rows ((N, W) int32 words) in the global table,
     keep the low local_bits - 7 bits of each block and insert the valid
-    rows into the (2^local_bits,) slice in place; write the rows (the
-    sentinel where invalid) to pending[off:off + N] when pending is
-    given."""
+    rows into the (2^local_bits,) slice in place; write the valid rows
+    alone, in order (rows[rvalid]), to pending from row `off` when pending
+    is given. Returns their number (int64 scalar)."""
     block, lp = blocks_lanepack(params, rows.to(torch.int64) & M32)
     block = block & ((1 << (local_bits - 7)) - 1)
     insert_plain(table, block, lp, rvalid, params.num_hashes)
     if pending is not None:
-        pending[off:off + rows.shape[0]] = torch.where(rvalid[:, None], rows,
-                                                       -1)
+        kept = rows[rvalid]
+        pending[off:off + kept.shape[0]] = kept
+    return rvalid.sum()
+
+
+def _k1r_status(device: torch.device, n_tiles: int):
+    """(status, epoch) of K1r's look-back on this device and stream: one
+    int64 word per tile, kept between launches; each launch tags its words
+    with a new epoch, so the words need clearing only when the buffer
+    grows or the epochs run out."""
+    key = (device, cuda.stream())
+    status, epoch = _K1R_STATUS.get(key, (None, 0))
+    if status is None or status.numel() < n_tiles or epoch + 1 >= 1 << 30:
+        status = torch.zeros(n_tiles, dtype=torch.int64, device=device)
+        epoch = 0
+    _K1R_STATUS[key] = (status, epoch + 1)
+    return status, epoch + 1
+
+
+def k1r_slots_per_thread(n: int) -> int:
+    """K1r's routed slots a thread for n slots: 4 where that still gives
+    _K1R_BLOCKS blocks, else 2: on an H100, the faster of 1, 2 and 4 at
+    the slots one shard of S = 1, 2, 4 and 8 takes (chip_smoke.py's
+    `_k1r_by_spt`)."""
+    return 4 if -(-n // (_K1R_THREADS * 4)) >= _K1R_BLOCKS else 2
 
 
 def bloom_insert_rows(table: torch.Tensor, rows: torch.Tensor,
                       rvalid: torch.Tensor, params: BloomParams,
                       local_bits: int, pending: Optional[torch.Tensor] = None,
-                      off: int = 0) -> None:
+                      off: int = 0) -> torch.Tensor:
     """K1r: insert the valid canonical rows ((N, W) int32 words, (N,) bool
     rvalid) into this rank's (2^local_bits,) int32 slice of the table
-    whose parameters are `params`, in place; write the rows (the sentinel
-    where invalid) from row `off` of `pending` ((P, W) int32) when
-    given."""
+    whose parameters are `params`, in place; write the valid rows alone,
+    in order (rows[rvalid]), from row `off` of `pending` ((P, W) int32)
+    when given, leaving its other rows as they were. `pending` must have
+    room for all N rows from `off` (the valid count is known only after the
+    launch). Returns the number of valid rows as a device int64 scalar."""
     dev = table.device
     if not 7 < local_bits <= params.log2_width:
         raise ValueError(f"local_bits {local_bits} outside (7, "
@@ -218,6 +248,8 @@ def bloom_insert_rows(table: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"rows: shape {tuple(rows.shape)}, expected "
                          f"(N, {W})")
     N = rows.shape[0]
+    if N >= 1 << 31:
+        raise ValueError(f"{N} rows: K1r takes fewer than 2^31")
     cuda.require(rvalid, "rvalid", torch.bool, dev, (N,))
     if pending is not None:
         cuda.require(pending, "pending", torch.int32, dev)
@@ -230,13 +262,20 @@ def bloom_insert_rows(table: torch.Tensor, rows: torch.Tensor,
     if dev.type == "cpu":
         return bloom_insert_rows_plain(table, rows, rvalid, params,
                                        local_bits, pending, off)
+    if N == 0:
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    n_valid = torch.empty((), dtype=torch.int64, device=dev)  # last tile's
+    spt = k1r_slots_per_thread(N)
+    status, epoch = _k1r_status(dev, -(-N // (_K1R_THREADS * spt)))
     rc = cuda.lib().kmerax_bloom_insert_rows(
         table.data_ptr(), rows.data_ptr(), rvalid.data_ptr(), N, params.k,
         (1 << (params.log2_width - 7)) - 1, (1 << (local_bits - 7)) - 1,
         params.num_hashes, *scheme_args(params),
-        None if pending is None else pending.data_ptr(), off, cuda.stream())
+        None if pending is None else pending.data_ptr(), off,
+        status.data_ptr(), epoch, spt, n_valid.data_ptr(), cuda.stream())
     cuda.LAUNCHES["bloom_insert_rows"] += 1
     cuda.check(rc, "bloom_insert_rows")
+    return n_valid
 
 
 def query_solid_plain(table: torch.Tensor, block: torch.Tensor,

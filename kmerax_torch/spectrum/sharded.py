@@ -16,9 +16,10 @@ x fair share. Overflow is counted, summed over the world before anything is
 written, and the driver replays the batch at a doubled capacity; query
 routing is lossless (capacity n).
 
-Each rank keeps the routed rows it received in a pending buffer and
-host-merges them; `allgather_spectrum` unions every rank's host spectrum,
-so every rank ends with the identical global spectrum.
+Each rank keeps the valid routed rows it received in a pending buffer
+(K1r appends them, compacted) and host-merges them; `allgather_spectrum`
+unions every rank's host spectrum, so every rank ends with the identical
+global spectrum.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from kmerax_torch.core.kmers import extract_kmers
 from kmerax_torch.spectrum.bloom import BloomParams
 from kmerax_torch.spectrum.bloom_kernels import blocks, blocks_lanepack, \
     bloom_insert_rows
-from kmerax_torch.spectrum.exact import SENTINEL_WORD, np_merge_counted
+from kmerax_torch.spectrum.exact import np_merge_counted
 
 COUNT_SATURATE = 1 << 30
 
@@ -130,8 +131,8 @@ def route_back(values: torch.Tensor, meta, group) -> torch.Tensor:
 
 
 def recv_rows(sp: ShardedParams, n_flat: int) -> int:
-    """Routed rows landing on each rank per batch (= pending append width):
-    S destinations x per-destination capacity."""
+    """Routed rows landing on each rank per batch: S destinations x
+    per-destination capacity. The most a batch can append to pending."""
     S = sp.n_shards
     return S * (-(-n_flat * sp.route_safety // S))
 
@@ -139,13 +140,17 @@ def recv_rows(sp: ShardedParams, n_flat: int) -> int:
 def sharded_insert_step(sp: ShardedParams, mesh, k: int):
     """The per-batch mesh count step at this capacity level:
 
-    step(table, pending, bases, off) -> (n_kmers, overflow), both summed
-    over the world. table: this rank's (width/S,) int32 partial slice;
-    pending: None or the (P, W) int32 raw-row buffer; bases: this rank's
-    (b, L) int8 rows of the batch. K1r inserts the routed rows and writes
-    them to pending from row `off`. If the world's overflow is above zero
-    the whole batch is a no-op on every rank (nothing is routed or written),
-    so the driver can double route_safety and replay it."""
+    step(table, pending, bases, off) -> (n_kmers, overflow, n_pending):
+    the first two summed over the world, the third this rank's. table: this
+    rank's (width/S,) int32 partial slice; pending: None or the (P, W)
+    int32 raw-row buffer, with room for recv_rows rows from `off`; bases:
+    this rank's (b, L) int8 rows of the batch. K1r inserts the routed rows
+    and appends the valid ones alone, in routed order, to pending from row
+    `off`; n_pending is their number (one host sync), by which
+    run_count_sharded advances `off`. If the world's overflow is above
+    zero the whole batch is a no-op on every rank (nothing is routed or
+    written, n_pending = 0), so run_count_sharded can double route_safety
+    and replay it."""
     def step(table, pending, bases, off):
         words, valid = extract_kmers(bases, k)
         canon, _ = canonical_words(words, k)
@@ -156,21 +161,21 @@ def sharded_insert_step(sp: ShardedParams, mesh, k: int):
         dist.all_reduce(tot)
         nk, ovf = (int(x) for x in tot.tolist())
         if ovf:
-            return nk, ovf
+            return nk, ovf, 0
         recv = exchange(send, mesh.bucket_group)
         w = flat.shape[1]
-        bloom_insert_rows(table, recv[:, :w].contiguous(), recv[:, w] != 0,
-                          sp.bloom, sp.local_bits, pending, off)
-        return nk, 0
+        n_new = bloom_insert_rows(table, recv[:, :w].contiguous(),
+                                  recv[:, w] != 0, sp.bloom, sp.local_bits,
+                                  pending, off)
+        return nk, 0, int(n_new) if pending is not None else 0
 
     return step
 
 
 def flush_pending_local(pending: torch.Tensor, off: int) -> np.ndarray:
-    """This rank's pending rows [0, off) as host (rows, W) uint32, sentinel
-    rows dropped, for the host merge."""
-    blk = pending[:off].cpu().numpy().view(np.uint32)
-    return blk[~np.all(blk == np.uint32(SENTINEL_WORD), axis=1)]
+    """This rank's pending rows [0, off) as host (rows, W) uint32 for the
+    host merge: K1r wrote valid rows only, so every one of them counts."""
+    return pending[:off].cpu().numpy().view(np.uint32)
 
 
 def merge_keep_sharded(table: torch.Tensor, mesh) -> torch.Tensor:

@@ -155,7 +155,7 @@ def lib() -> ctypes.CDLL:
         P, P, I, I, I, ctypes.c_uint32, I, I, I, P, I64, P, P]
     L.kmerax_bloom_insert_rows.argtypes = [
         P, P, P, I64, I, ctypes.c_uint32, ctypes.c_uint32, I, I, I, P, I64,
-        P]
+        P, ctypes.c_uint32, I, P, P]
     L.kmerax_bloom_query_solid.argtypes = [
         P, P, I, I, I, P, ctypes.c_uint32, I, I, I, I, P, P]
     L.kmerax_correct_eval_scores.argtypes = [

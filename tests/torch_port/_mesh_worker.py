@@ -11,7 +11,8 @@ against the JAX package in their own process.
 
 Steps ("kind"):
   count     run_count on the config; rank 0 saves the table, the host
-            spectrum, histogram, threshold and the route observables
+            spectrum, histogram, threshold, the route observables and its
+            host merges
   pipeline  run_pipeline (count, correct, assemble); rank 0 saves the
             stage results and the correct path
   twopass   run_two_pass with a checkpoint workdir; rank 0 saves the
@@ -54,7 +55,8 @@ def _count(step, mesh, out):
                  hist=state.hist, threshold=state.threshold,
                  n_reads=state.n_reads, n_kmers=state.n_kmers,
                  retries=count.LAST_COUNT_RETRIES,
-                 safety=count.LAST_ROUTE_SAFETY)
+                 safety=count.LAST_ROUTE_SAFETY,
+                 flushes=count.LAST_COUNT_FLUSHES)
 
 
 def _pipeline(step, mesh, out):

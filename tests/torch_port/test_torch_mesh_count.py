@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 import kmerax.pipeline.run as j_run
+import kmerax_torch.pipeline.count as t_count
 from kmerax.config import KmeraxConfig as JConfig
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.pipeline.count import run_count
@@ -21,12 +22,18 @@ MESHES = [(1, 2), (2, 1), (2, 2)]
 # tests/dist/test_route_overflow.py's config and mesh
 SKEW_CFG = dict(CFG, exact_capacity=1 << 14)
 SKEW_MESH = (1, 8)
+# a capacity at which the pending buffer flushes every ~9 batches on these
+# meshes (every 14 in run_count): several flushes in the 30 batches of the
+# long input
+FLUSH_CFG = dict(CFG, exact_capacity=1 << 18)
+FLUSH_MESHES = [(1, 2), (2, 2), (1, 8)]
 
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     """tests/dist/test_sharded.py's reads, test_route_overflow.py's
-    homopolymer reads, and those followed by > 8 batches of clean reads."""
+    homopolymer reads, those followed by > 8 batches of clean reads, and
+    by 28 batches of them."""
     d = tmp_path_factory.mktemp("mesh_count")
     _, reads = ecoli_like(seed=88, genome_len=1200, coverage=25,
                           read_len=100, error_rate=0.01)
@@ -39,13 +46,17 @@ def inputs(tmp_path_factory):
     _, clean = ecoli_like(seed=9, genome_len=1500, coverage=90,
                           read_len=100, error_rate=0.01)
     (d / "mix.fastq").write_bytes(skew + make_fastq(clean))
+    _, more = ecoli_like(seed=5, genome_len=3000, coverage=120,
+                         read_len=100, error_rate=0.01)
+    (d / "long.fastq").write_bytes(skew + make_fastq(more))
     return d
 
 
 @pytest.fixture(scope="module")
 def port_runs(inputs, tmp_path_factory):
     """The port's mesh counts, every mesh at once: the reads on 1x2, 2x1
-    and 2x2, the skewed and the mixed reads on 1x8."""
+    and 2x2, the skewed and the mixed reads on 1x8, the long reads on
+    FLUSH_MESHES."""
     tmp = tmp_path_factory.mktemp("mesh_runs")
     jobs = [(mesh, {"out": str(tmp), "steps": [{
         "kind": "count", "name": f"reads_{mesh[0]}x{mesh[1]}", "cfg": CFG,
@@ -54,6 +65,10 @@ def port_runs(inputs, tmp_path_factory):
         {"kind": "count", "name": name, "cfg": SKEW_CFG,
          "paths": [str(inputs / f"{name}.fastq")]}
         for name in ("skew", "mix")]}))
+    jobs += [(mesh, {"out": str(tmp), "steps": [{
+        "kind": "count", "name": f"long_{mesh[0]}x{mesh[1]}",
+        "cfg": FLUSH_CFG, "paths": [str(inputs / "long.fastq")]}]})
+        for mesh in FLUSH_MESHES]
     run_mesh(jobs, tmp)
     return {p.stem: dict(np.load(p)) for p in tmp.glob("*.npz")}
 
@@ -110,3 +125,31 @@ def test_route_overflow_replays_as_jax(inputs, port_runs, name):
         assert jsafety == 4
     one = run_count(KmeraxConfig(**SKEW_CFG), [path], device="cpu")
     _same_count(got, one)
+
+
+@pytest.mark.parametrize("mesh", FLUSH_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_mesh_count_flushes_mid_stage(inputs, port_runs, mesh):
+    """The pending buffer holds only valid routed rows: with a capacity
+    small enough to flush it several times mid-stage, the mesh count still
+    equals the JAX package's on the same mesh and the port's 1 x 1 count.
+    On 1 x 2 and 2 x 2 no batch can overflow (a destination's capacity,
+    route_safety 4 x n/S, is at least the n k-mers a rank sends), and the
+    count merges no more often than run_count + 1 on the same reads. On
+    1 x 8 the homopolymer batches overflow and replay among the flushes;
+    at the doubled route_safety the reference's size rule leaves the
+    buffer one worst-case batch deep, so every batch flushes until the
+    capacity decays, and the +1 does not hold there."""
+    path = str(inputs / "long.fastq")
+    got = port_runs[f"long_{mesh[0]}x{mesh[1]}"]
+    jstate, jretries, jsafety = _jax_count(FLUSH_CFG, mesh, path)
+    _same_count(got, jstate)
+    assert int(got["retries"]) == jretries
+    assert int(got["safety"]) == jsafety
+    assert (jretries >= 1) == (mesh == SKEW_MESH)
+    one = run_count(KmeraxConfig(**FLUSH_CFG), [path], device="cpu")
+    _same_count(got, one)
+    flushes = int(got["flushes"])
+    assert flushes >= 3
+    if mesh != SKEW_MESH:
+        assert flushes <= t_count.LAST_COUNT_FLUSHES + 1, \
+            (flushes, t_count.LAST_COUNT_FLUSHES)

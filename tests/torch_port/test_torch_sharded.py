@@ -26,7 +26,8 @@ from kmerax_torch.core.kmers import extract_kmers
 from kmerax_torch.dist import mesh as dmesh
 from kmerax_torch.pipeline.count import bloom_params, run_count
 from kmerax_torch.spectrum.bloom import BloomParams
-from kmerax_torch.spectrum.bloom_kernels import bloom_insert_rows
+from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+    bloom_insert_rows, insert_plain
 from kmerax_torch.spectrum.sharded import ShardedParams, recv_rows, \
     shard_of
 
@@ -77,21 +78,88 @@ def test_insert_rows_plain_matches_jax(S, k, scheme):
 
 
 def test_insert_rows_writes_pending():
-    """K1r's pending rows: each row where valid, the sentinel elsewhere,
-    from row `off`; rows outside the buffer are refused."""
+    """K1r's pending rows: the valid rows alone, in order, from row `off`,
+    the buffer's other rows untouched; it returns their number; rows
+    outside the buffer are refused (room for all N from `off`)."""
     p = BloomParams(31, LW)
     rows = torch.tensor([[5, 6], [7, 8], [9, 10]], dtype=torch.int32)
     valid = torch.tensor([True, False, True])
-    pending = torch.zeros(5, 2, dtype=torch.int32)
-    bloom_insert_rows(torch.zeros(1 << 14, dtype=torch.int32), rows, valid,
-                      p, 14, pending, 2)
-    assert pending.tolist() == [[0, 0], [0, 0], [5, 6], [-1, -1], [9, 10]]
+    pending = torch.full((6, 2), 3, dtype=torch.int32)
+    count = bloom_insert_rows(torch.zeros(1 << 14, dtype=torch.int32), rows,
+                              valid, p, 14, pending, 2)
+    assert count.dtype == torch.int64 and count.dim() == 0
+    assert int(count) == 2
+    assert pending.tolist() == [[3, 3], [3, 3], [5, 6], [9, 10], [3, 3],
+                                [3, 3]]
     with pytest.raises(ValueError, match="pending rows"):
         bloom_insert_rows(torch.zeros(1 << 14, dtype=torch.int32), rows,
-                          valid, p, 14, pending, 3)
+                          valid, p, 14, pending, 4)
     with pytest.raises(ValueError, match="local_bits"):
         bloom_insert_rows(torch.zeros(1 << 7, dtype=torch.int32), rows,
                           valid, p, 7)
+
+
+def _rvalid(pattern: str, n: int, rng) -> np.ndarray:
+    """A valid mask of n routed slots: every slot, none, scattered slots,
+    or runs of valid slots at random places (route_prep's masks are a
+    valid prefix in each source's block)."""
+    if pattern == "all":
+        return np.ones(n, bool)
+    if pattern == "none":
+        return np.zeros(n, bool)
+    if pattern == "scattered":
+        return rng.random(n) < 0.3
+    starts = rng.integers(0, n, 12)
+    lens = rng.integers(1, 200, 12)
+    mask = np.zeros(n, bool)
+    for a, b in zip(starts, lens):
+        mask[a:a + b] = True
+    return mask
+
+
+@pytest.mark.parametrize("scheme", ["hash", "minimizer"])
+@pytest.mark.parametrize("pattern", ["all", "none", "scattered", "runs"])
+def test_insert_rows_plain_any_rvalid(pattern, scheme):
+    """K1r's plain version for any valid mask, not only route_prep's: its
+    slice == insert_plain at the masked global addressing == the JAX
+    package's insert(..., local_bits) on the same rows; pending from `off`
+    == rows[rvalid] with the buffer's other rows untouched; the count ==
+    rvalid's."""
+    rng = np.random.default_rng(sum(map(ord, pattern + scheme)))
+    k = 31
+    tp = BloomParams(k, LW, 4, M, LB, scheme)
+    jp = JBloomParams(k, LW, 4, M, LB, scheme)
+    tsp = ShardedParams(tp, 4)
+    lb = tsp.local_bits
+    reads, _ = reads_with_ns(int(rng.integers(1 << 16)), 96, 100, k)
+    tw, tv = extract_kmers(torch.from_numpy(reads), k)
+    tc, _ = canonical_words(tw, k)
+    tc, tv = tc.reshape(-1, tc.shape[-1]), tv.reshape(-1)
+    # the k-mers routed to shard 1 of 4, as the all-to-all delivers them
+    tc = tc[tv & (shard_of(tc, tsp) == 1)]
+    rows = to_u32_bits(tc)
+    rvalid = torch.from_numpy(_rvalid(pattern, rows.shape[0], rng))
+    got = torch.zeros(1 << lb, dtype=torch.int32)
+    off = 7
+    pending = torch.full((off + rows.shape[0] + 3, rows.shape[1]), 3,
+                         dtype=torch.int32)
+    want_pend = pending.clone()
+    count = bloom_insert_rows(got, rows, rvalid, tp, lb, pending, off)
+    kept = rows[rvalid]
+    want_pend[off:off + len(kept)] = kept
+    assert torch.equal(pending, want_pend)
+    assert int(count) == int(rvalid.sum())
+    block, lp = blocks_lanepack(tp, tc)
+    want = torch.zeros(1 << lb, dtype=torch.int32)
+    insert_plain(want, block & ((1 << (lb - 7)) - 1), lp, rvalid,
+                 tp.num_hashes)
+    np.testing.assert_array_equal(n(got), n(want))
+    jins = jax.jit(insert, static_argnums=0, static_argnames="local_bits")
+    jwant = jins(jp, jnp.zeros(1 << lb, jnp.int32),
+                 jnp.asarray(n(tc).astype(np.uint32)),
+                 jnp.asarray(n(rvalid)), local_bits=lb)
+    np.testing.assert_array_equal(n(got), np.asarray(jwant))
+    assert (pattern == "none") == (int(n(got).sum()) == 0)
 
 
 ROUTE_S, ROUTE_RANKS = 4, 4
