@@ -72,6 +72,19 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      two cards or more, `count --mesh-bucket S` through the CLI, its
      spectrum == run_count's; with one card a line says it did not run).
 
+  8. the multi-host path: `pipeline --coordinator 127.0.0.1:P
+     --num-procs 1 --process-id 0` (a `tcp://` rendezvous, one NCCL rank)
+     on a prefix of phase 7's config-2 reads, FASTQ and FASTA byte-equal to
+     the one-device `pipeline` and K1-K3 launched in its rank; `count` to a
+     checkpoint and `assemble --spectrum` the same way, byte-equal to one
+     device; then phase 7's config-2 exact spectrum split between two host
+     processes (gloo, started by dist/mesh.launch): shard_spectrum, the
+     global histogram (== phase 7's), assemble_sharded (FASTA == the
+     one-device assembly of the same spectrum) and the sharded
+     checkpoint's save and load, with each step's wall, each host's
+     resident rows and the rows it received. A world of two NCCL ranks
+     needs two cards: a line says so.
+
 Phase 4's count profiler window runs in a child process of its own
 (`python3 chip_smoke.py --child NAME ARG`, used by the script itself), as
 does phase 7's wire profile. Each phase prints its wall, the script its
@@ -1820,11 +1833,11 @@ def phase_config5(workdir: str):
         raise RuntimeError("injected failure after the count_k2 checkpoint")
 
     orig = {n: getattr(twopass, n) for n in
-            ("save_spectrum", "load_spectrum", "assemble_to_fasta")}
+            ("save_state", "load_spectrum", "assemble_to_fasta")}
     cuda.reset_launches()
     t0 = time.perf_counter()
     try:
-        twopass.save_spectrum = timed("save", orig["save_spectrum"])
+        twopass.save_state = timed("save", orig["save_state"])
         twopass.load_spectrum = timed("load", orig["load_spectrum"])
         twopass.assemble_to_fasta = boom
         try:
@@ -2229,6 +2242,7 @@ def phase_bench(workdir: str, recs=None):
     try:
         st = _stages(os.path.join(rep["workdir"], "metrics.jsonl"))
         runs.update(_sharded_count(rep, kept[0]))
+        _keep_config2(rep, kept[0]["want"])
     finally:
         shutil.rmtree(rep["workdir"], ignore_errors=True)
     cnt, cor = st["count"][0], st["correct"][0]
@@ -2253,6 +2267,29 @@ def phase_bench(workdir: str, recs=None):
             raise AssertionError(f"kernel {name} never launched by config 2")
     _mesh_on_cuda()
     return runs
+
+
+# phase 7's config-2 inputs, outputs and spectrum, kept for phase 8
+_C2: dict = {}
+
+
+def _keep_config2(rep: dict, want: dict) -> None:
+    """Move config 2's reads and corrected FASTQs out of the acceptance
+    run's workdir into a directory of their own, and keep its exact
+    spectrum, histogram and threshold (not its table) for phase 8."""
+    from kmerax_torch.bench.acceptance import CONFIGS, sized_config
+
+    d = tempfile.mkdtemp(prefix="kmerax_c2_")
+    for f in ("reads_1.fastq.gz", "reads_2.fastq.gz", "corrected_1.fastq",
+              "corrected_2.fastq"):
+        shutil.move(os.path.join(rep["workdir"], f), os.path.join(d, f))
+    cfg = sized_config(CONFIGS[2], rep["genome_len"], rep["reads"])
+    _C2.update(dir=d, reads=rep["reads"], cfg=dict(
+        k=cfg.k, bloom_log2_width=cfg.bloom_log2_width,
+        exact_capacity=cfg.exact_capacity, batch_reads=cfg.batch_reads,
+        max_read_len=cfg.max_read_len),
+        **{key: want[key] for key in ("uniq", "counts", "hist",
+                                      "threshold")})
 
 
 def _count_arrays(state) -> dict:
@@ -2409,6 +2446,251 @@ def _mesh_on_cuda() -> None:
         f"phase7 mesh: {have} cards here; a 2 x 2 mesh raised {raised!r}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+# phase 8's cut: the first C8_PAIRS pairs of config 2's 240,000, so the
+# phase stays inside its 90 s (two pipelines, a count and two assemblies
+# on it, each multi-host CLI call starting a rank process): 60,000 pairs
+# took 94.8 s on an NVIDIA H100 80GB HBM3 at 700 W
+C8_PAIRS = 40_000
+C8_TIMEOUT = 600            # seconds the two host processes may take
+
+
+def _prefix_fastq(src: str, dst: str, n: int) -> None:
+    import gzip
+
+    with gzip.open(src, "rb") as f, open(dst, "wb") as out:
+        for _ in range(4 * n):
+            out.write(f.readline())
+
+
+def _phase8_host(spec_npz: str, cfg_kw: dict, t: int, workdir: str) -> dict:
+    """One emulated host of phase 8 (a rank of a 2 x 1 gloo mesh over two
+    hosts): its half of every count of phase 7's spectrum (host 0 the
+    floor, host 1 the rest; a row whose half is 0 stays off), then
+    shard_spectrum, the global histogram, assemble_sharded and the
+    sharded checkpoint's save and load, each step's wall kept; writes
+    host{p}.json."""
+    import numpy as np
+    import kmerax_torch.graph.sharded as gs
+    import kmerax_torch.spectrum.host_sharded as hs
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.pipeline.checkpoint import load_spectrum, \
+        save_spectrum
+    from kmerax_torch.pipeline.count import CountState
+
+    m = dmesh.current()
+    p, k = m.host, cfg_kw["k"]
+    with np.load(spec_npz) as z:
+        uniq, counts = z["uniq"], z["counts"]
+    c = counts // 2 if p == 0 else counts - counts // 2
+    keep = c > 0
+    uniq, c = np.ascontiguousarray(uniq[keep]), c[keep]
+    walls = {}
+    t0 = time.perf_counter()
+    sh = hs.shard_spectrum(uniq, c, k, p, m.n_hosts)
+    walls["shard_spectrum"] = time.perf_counter() - t0
+    del uniq, c
+    t0 = time.perf_counter()
+    hist = sh.histogram(255)
+    n_unique = sh.n_unique
+    walls["histogram"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = gs.assemble_sharded(sh, t, k, os.path.join(workdir, "sharded.fasta"),
+                            device="cpu")
+    walls["assemble_sharded"] = time.perf_counter() - t0
+    ckpt = os.path.join(workdir, "ckpt")
+    cfg = KmeraxConfig(**cfg_kw)
+    t0 = time.perf_counter()
+    save_spectrum(ckpt, CountState(cfg, None, hist, t, 0, 0, host=sh))
+    dmesh.host_barrier("save", leaders=True)
+    walls["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manifest, arrays = load_spectrum(ckpt, p, m.n_hosts)
+    walls["load"] = time.perf_counter() - t0
+    same = (manifest["host_shard"] == [p, m.n_hosts]
+            and np.array_equal(arrays["host_uniq"], sh.local.uniq)
+            and np.array_equal(arrays["host_counts"], sh.local.counts)
+            and np.array_equal(arrays["hist"], hist))
+    out = {"host": p, "resident": sh.n_unique_local, "distinct": n_unique,
+           "hist": [int(x) for x in hist], "unitigs": n,
+           "exchange": dict(hs.LAST_EXCHANGE), "stats": dict(gs.LAST_STATS),
+           "walls": walls, "ckpt_same": bool(same)}
+    with open(os.path.join(workdir, f"host{p}.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def phase_multihost(workdir: str):
+    """The multi-host path on the card at world size 1, and the host-side
+    modules at config 2's size.
+
+    (1) `pipeline --coordinator 127.0.0.1:P --num-procs 1 --process-id 0`
+    (a `tcp://` rendezvous and a one-rank NCCL group) on a prefix of phase
+    7's config-2 reads: FASTQ and FASTA byte-equal to the one-device
+    `pipeline` on the same reads, and K1-K3 launched; then `count` to a
+    checkpoint and `assemble --spectrum` from it through the same flags,
+    the FASTA byte-equal to the one-device `assemble --spectrum`.
+    (2) phase 7's config-2 exact spectrum (not counted again), split
+    between two host processes that this script's `launch` starts (gloo;
+    these modules move numpy arrays only): shard_spectrum, the global
+    histogram (== phase 7's), assemble_sharded (FASTA == the one-device
+    assembly of the same spectrum) and the sharded checkpoint's save and
+    load; each step's wall, each host's resident rows and the rows it
+    received. Returns the launches of (1)."""
+    import numpy as np
+    import torch
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.graph.partitioned import assemble_host
+    from kmerax_torch.io.fasta import write_fasta
+    from kmerax_torch.spectrum.host import HostSpectrum
+    from kmerax_torch.utils import cuda
+
+    c2 = dict(_C2)
+    _C2.clear()
+    # a hung rank fails the phase instead of the call
+    dmesh.LAUNCH_TIMEOUT, timeout = C8_TIMEOUT, dmesh.LAUNCH_TIMEOUT
+    try:
+        args = _cli_args(c2["cfg"])
+        say(f"phase8 CUT: the first {C8_PAIRS} of config 2's "
+            f"{c2['reads'] // 2} pairs (phase 7's reads), for the 90 s "
+            f"budget of this phase")
+        ins = [os.path.join(workdir, f"r{i}.fastq") for i in (1, 2)]
+        for i, dst in zip((1, 2), ins):
+            _prefix_fastq(os.path.join(c2["dir"], f"reads_{i}.fastq.gz"),
+                          dst, C8_PAIRS)
+        runs = {}
+
+        def pipeline(tag, extra):
+            out = [os.path.join(workdir, f"{tag}_{i}.fastq") for i in (1, 2)]
+            fa = os.path.join(workdir, f"{tag}.fasta")
+            cuda.reset_launches()
+            res, wall = _cli("phase8", workdir, ["pipeline", "--in", *ins,
+                                        "--out-fastq", *out, "--out-fasta",
+                                        fa, "--device", DEVICE, *args,
+                                        *extra])
+            return res, wall, dict(cuda.LAUNCHES), out + [fa]
+
+        port = _free_port()
+        hosts = ["--coordinator", f"127.0.0.1:{port}", "--num-procs", "1",
+                 "--process-id", "0"]
+        one, w_one, _, f_one = pipeline("one", [])
+        res, w_mh, launches, f_mh = pipeline("mh", hosts)
+        runs["config2_prefix_multihost_pipeline"] = launches
+        if res != one:
+            raise AssertionError(f"multi-host pipeline {res} != {one}")
+        for a, b in zip(f_mh, f_one):
+            _same_bytes(a, b, "phase8 multi-host pipeline (world 1)")
+        for name in MAIN_PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched by the "
+                                     f"multi-host pipeline")
+        num(f"phase8 `pipeline` over a tcp:// rendezvous at 127.0.0.1:"
+            f"{port} (one NCCL rank): {res}; FASTQ and FASTA byte-equal to "
+            f"the one-device run's; wall {w_mh:.2f} s with the rank's "
+            f"start, one-device {w_one:.2f} s; launches {launches}")
+
+        spec = os.path.join(workdir, "spec")
+        port = _free_port()
+        hosts = ["--coordinator", f"127.0.0.1:{port}", "--num-procs", "1",
+                 "--process-id", "0"]
+        rc, w_count = _cli("phase8", workdir, ["count", "--in", *ins, "--out", spec,
+                                      "--device", DEVICE, *args, *hosts])
+        fa = [os.path.join(workdir, f"asm_{t}.fasta") for t in ("mh", "one")]
+        port = _free_port()
+        ra, w_asm = _cli("phase8", workdir, [
+            "assemble", "--spectrum", spec, "--out", fa[0], "--device",
+            DEVICE, "--coordinator", f"127.0.0.1:{port}", "--num-procs",
+            "1", "--process-id", "0"])
+        rb, w_asm1 = _cli("phase8", workdir, [
+            "assemble", "--spectrum", spec, "--out", fa[1], "--device",
+            DEVICE])
+        if ra != rb:
+            raise AssertionError(f"assemble --spectrum {ra} != {rb}")
+        _same_bytes(fa[0], fa[1], "phase8 multi-host assemble --spectrum")
+        num(f"phase8 `count` -> checkpoint {rc} ({w_count:.2f} s) and "
+            f"`assemble --spectrum` {ra} ({w_asm:.2f} s) over tcp://, FASTA "
+            f"byte-equal to the one-device `assemble --spectrum` "
+            f"({w_asm1:.2f} s)")
+        say("phase8 fact: the per-host count and correct across two cards "
+            "(a world of two NCCL ranks, one card each) cannot run on this "
+            f"machine's {torch.cuda.device_count()} card; they run on the "
+            "CPU over gloo in the tests")
+
+        # (2) the host-side modules on phase 7's spectrum
+        k, t = c2["cfg"]["k"], int(c2["threshold"])
+        spec_npz = os.path.join(workdir, "c2_spectrum.npz")
+        np.savez(spec_npz, uniq=c2["uniq"], counts=c2["counts"])
+        t0 = time.perf_counter()
+        seqs = assemble_host(HostSpectrum(c2["uniq"], c2["counts"], k), t, k,
+                             device=DEVICE)
+        ref_fa = os.path.join(workdir, "one_device.fasta")
+        write_fasta(ref_fa, seqs)
+        w_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dmesh.launch(dmesh.MeshSpec(2, 1), "cpu", _phase8_host, spec_npz,
+                     c2["cfg"], t, workdir, n_hosts=2, host=None)
+        w_hosts = time.perf_counter() - t0
+        hs = []
+        for p in range(2):
+            with open(os.path.join(workdir, f"host{p}.json")) as f:
+                hs.append(json.load(f))
+        _same_bytes(os.path.join(workdir, "sharded.fasta"), ref_fa,
+                    "phase8 assemble_sharded on two hosts")
+        n_distinct = len(c2["uniq"])
+        for h in hs:
+            if h["hist"] != [int(x) for x in c2["hist"]]:
+                raise AssertionError(f"host {h['host']}: global histogram "
+                                     f"!= phase 7's")
+            if h["distinct"] != n_distinct or not h["ckpt_same"]:
+                raise AssertionError(f"host {h['host']}: {h}")
+            frac = h["resident"] / n_distinct
+            if not 0.25 <= frac <= 0.75:
+                raise AssertionError(f"host {h['host']} holds {frac:.3f} "
+                                     f"of the spectrum")
+            st, x = h["stats"], h["exchange"]
+            if st["exchange_foreign_rows"] or x["foreign_rows"] or \
+                    st["exchange_max_step_rows"] > \
+                    st["exchange_max_step_bound"]:
+                raise AssertionError(f"host {h['host']} exchanges: {st} {x}")
+            num(f"phase8 host {h['host']} of 2 (gloo, CPU ranks; host time "
+                f"on this machine): shard_spectrum "
+                f"{h['walls']['shard_spectrum']:.2f} s, {h['resident']} of "
+                f"{n_distinct} distinct rows resident ({frac:.3f}), received "
+                f"{x['received_rows']} rows in {x['steps']} steps (most "
+                f"{x['max_step_rows']} a step, chunk {x['chunk']}); "
+                f"histogram {h['walls']['histogram']:.2f} s; "
+                f"assemble_sharded {h['walls']['assemble_sharded']:.2f} s: "
+                f"{st['peak_solid_rows']} of {st['global_solid']} solid rows "
+                f"resident, {st['emission_rows']} emission records, "
+                f"{st['exchange_rows']} rows received in "
+                f"{st['exchange_steps']} exchange steps (most "
+                f"{st['exchange_max_step_rows']} a step, bound "
+                f"{st['exchange_max_step_bound']}); checkpoint save "
+                f"{h['walls']['save']:.2f} s, load {h['walls']['load']:.2f} s")
+        num(f"phase8 host-side modules on phase 7's config-2 spectrum "
+            f"({n_distinct} distinct k-mers, k={k}, threshold {t}): "
+            f"{hs[0]['unitigs']} unitigs, FASTA byte-equal to the "
+            f"one-device assembly ({w_ref:.2f} s); two hosts {w_hosts:.2f} s "
+            f"with their start; histogram == phase 7's; the sharded "
+            f"checkpoint loads back equal")
+        return runs
+    finally:
+        dmesh.LAUNCH_TIMEOUT = timeout
+        shutil.rmtree(c2.get("dir", ""), ignore_errors=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def main() -> int:
     import torch
 
@@ -2429,7 +2711,8 @@ def main() -> int:
     for i, phase in enumerate((phase_golden,
                                functools.partial(phase_config1, recs=recs),
                                phase_config3, phase_config5,
-                               functools.partial(phase_bench, recs=recs)),
+                               functools.partial(phase_bench, recs=recs),
+                               phase_multihost),
                               start=3):
         workdir = tempfile.mkdtemp(prefix="kmerax_smoke_")
         t0 = time.perf_counter()

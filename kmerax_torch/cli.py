@@ -1,6 +1,7 @@
 """kmerax_torch command line: the subcommands of kmerax/cli.py on one
-device or on a ("data", "bucket") mesh of one host, `bench` included (its
-presets and acceptance configs; the multi-host `--scaling` is not ported).
+device, on a ("data", "bucket") mesh of one host, or across hosts, `bench`
+included (its presets, acceptance configs, `--acceptance N --hosts M` over
+M emulated hosts and the weak-scaling `--scaling --hosts 1 2 4`).
 
     python -m kmerax_torch.cli count --in R1.fq R2.fq --out spec/ -k 31
     python -m kmerax_torch.cli correct --in R1.fq R2.fq --out c1.fq c2.fq \\
@@ -12,6 +13,8 @@ presets and acceptance configs; the multi-host `--scaling` is not ported).
         --contigs contigs.fa --out aln.tsv -k 31
     python -m kmerax_torch.cli bench --preset {count,correct,align,e2e,all}
     python -m kmerax_torch.cli bench --acceptance 2 --scale 10
+    python -m kmerax_torch.cli bench --acceptance 4 --hosts 2 --device cpu
+    python -m kmerax_torch.cli bench --scaling --hosts 1 2 4 --device cpu
 
 Config precedence: defaults < --config TOML < explicit flags. `--device
 cuda` (the default) raises where CUDA is absent; `--device cpu` runs the
@@ -21,9 +24,17 @@ spawns, one process per device (dist/mesh.py): rank r on cuda:r over NCCL,
 or on the CPU over gloo with `--device cpu`; rank 0 writes the files and
 its result is printed. `align` and `bench` run on one device, as in the
 JAX package (an acceptance config picks its own mesh); `bench --preset`
-with mesh flags and the multi-host flags fail with a "not yet ported"
-error. A spectrum directory from `count` is the JAX package's checkpoint
-format; either package reads the other's.
+with mesh flags fails with a "not yet ported" error.
+
+Multi-host: each of N hosts runs the same command with `--coordinator
+HOST0:PORT --num-procs N --process-id p` (or the KMERAX_COORDINATOR,
+KMERAX_NUM_PROCS, KMERAX_PROCESS_INDEX environment); each spawns its host's
+D·S / N ranks (cuda:0.. of that host) and the hosts parse, correct and
+align their own input shards. `align` then runs on every host too.
+
+A spectrum directory from `count` is the JAX package's checkpoint format
+(a range-sharded one writes a shard per host); either package reads the
+other's.
 """
 
 from __future__ import annotations
@@ -37,9 +48,7 @@ from kmerax_torch.utils.logging import get_logger
 
 log = get_logger("kmerax_torch.cli")
 
-# flags of the JAX CLI whose paths the port does not have yet
-_UNPORTED = ("coordinator", "num_procs", "process_id", "scaling", "hosts")
-# the subcommands that run on the config's mesh
+# the subcommands that run on the config's mesh (and `align` across hosts)
 _MESH_CMDS = ("count", "correct", "assemble", "pipeline")
 
 
@@ -72,9 +81,31 @@ def _add_common(p: argparse.ArgumentParser):
                    help='mesh "data" axis size (DP over reads)')
     p.add_argument("--mesh-bucket", type=int, default=None,
                    help='mesh "bucket" axis size (spectrum sharding)')
-    for flag in ("--num-procs", "--process-id"):
-        p.add_argument(flag, type=int, default=None, help="not yet ported")
-    p.add_argument("--coordinator", default=None, help="not yet ported")
+    # multi-host: one CLI process per host with --coordinator host:port
+    # --num-procs N --process-id P (or KMERAX_COORDINATOR /
+    # KMERAX_NUM_PROCS / KMERAX_PROCESS_INDEX); each spawns its host's
+    # D·S / N ranks of the mesh
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (its rank 0 listens there)")
+    p.add_argument("--num-procs", type=int, default=None,
+                   help="hosts of a multi-host run")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this host's index in [0, --num-procs)")
+
+
+def _hosts(args):
+    """(coordinator, N, p) from the flags, else the KMERAX_* environment,
+    as kmerax/dist/mesh.py::init_distributed reads them; (None, 1, 0)
+    without a coordinator."""
+    import os
+
+    coordinator = args.coordinator or os.environ.get("KMERAX_COORDINATOR")
+    if coordinator is None:
+        return None, 1, 0
+    n = args.num_procs or int(os.environ["KMERAX_NUM_PROCS"])
+    p = args.process_id if args.process_id is not None \
+        else int(os.environ["KMERAX_PROCESS_INDEX"])
+    return coordinator, n, p
 
 
 def _cfg(args) -> KmeraxConfig:
@@ -155,28 +186,28 @@ def main(argv=None) -> int:
                    help="genome scale factor for --acceptance, or 'full' "
                         "for the real dataset size (config 1 = 4.6Mb)")
     p.add_argument("--scaling", action="store_true",
-                   help="multi-host weak-scaling efficiency: not yet ported")
+                   help="multi-host weak-scaling efficiency (hosts emulated "
+                        "on this machine: gloo on the CPU, their own cards "
+                        "on cuda)")
     p.add_argument("--hosts", type=int, nargs="+", default=None,
-                   help="host counts for --scaling: not yet ported")
+                   help="host counts for --scaling (default 1 2 4), or the "
+                        "emulated hosts of --acceptance N")
     args = ap.parse_args(argv)
-
-    used = [f"--{n.replace('_', '-')}" for n in _UNPORTED
-            if getattr(args, n, None) not in (None, False)]
-    if used:
-        raise NotImplementedError(
-            f"not yet ported to kmerax_torch: {', '.join(used)}")
 
     from kmerax_torch.dist import mesh as dmesh
 
     cfg = _cfg(args)
     cfg.require_ported()
     spec = dmesh.MeshSpec(cfg.mesh_data, cfg.mesh_bucket)
-    if spec.ndev > 1 and args.cmd in _MESH_CMDS:
+    coordinator, n_hosts, host = _hosts(args)
+    if (spec.ndev > 1 and args.cmd in _MESH_CMDS) or (
+            coordinator is not None and args.cmd in _MESH_CMDS + ("align",)):
         from kmerax_torch.pipeline.run import restore_observed, \
             with_observed
 
         result, obs = dmesh.launch(spec, args.device, with_observed, _run,
-                                   args)
+                                   args, coordinator=coordinator,
+                                   n_hosts=n_hosts, host=host)
         restore_observed(obs)
     else:
         result = _run(args)
@@ -208,16 +239,12 @@ def _run(args) -> dict:
 def _stage(args, cfg: KmeraxConfig, device, m) -> dict:
     """count, correct, assemble or align: one stage, metrics into m."""
     if args.cmd == "count":
-        from kmerax_torch.pipeline.checkpoint import save_spectrum
+        from kmerax_torch.pipeline.checkpoint import save_state
         from kmerax_torch.pipeline.count import run_count
 
-        from kmerax_torch.dist.mesh import is_writer
-
         state = run_count(cfg, args.inputs, metrics=m, device=device)
-        if is_writer():
-            save_spectrum(args.out, state,
-                          extra={"n_reads": state.n_reads,
-                                 "n_kmers": state.n_kmers})
+        save_state(args.out, state, extra={"n_reads": state.n_reads,
+                                           "n_kmers": state.n_kmers})
         return {"reads": state.n_reads, "kmers": state.n_kmers,
                 "threshold": state.threshold}
     if args.cmd == "correct":
@@ -260,6 +287,16 @@ def _pipeline(args, cfg: KmeraxConfig, device) -> dict:
 def _bench(args, cfg: KmeraxConfig, device) -> dict:
     """An acceptance config (which sizes its own config, as in the JAX
     package) or a benchmark preset on the CLI's config."""
+    if args.scaling:
+        from kmerax_torch.bench.scaling import run_scaling
+
+        return run_scaling(host_counts=tuple(args.hosts or (1, 2, 4)),
+                           device=device)
+    if args.acceptance is not None and args.hosts:
+        from kmerax_torch.bench.acceptance_mp import run_config_mp
+
+        return run_config_mp(args.acceptance, scale=args.scale,
+                             n_procs=args.hosts[0], device=device)
     if args.acceptance is not None:
         from kmerax_torch.bench.acceptance import run_config
 

@@ -13,6 +13,12 @@ discovery streams over contiguous partitions of them:
 Chain pointer-doubling and emission then run on the host (graph/unitig.py).
 The numpy parts are copies of the JAX package's, which cannot be imported
 without JAX. Unitig sequences equal the JAX package's byte for byte.
+
+Across hosts (a replicated host spectrum at N > 1, `--no-shard-host-
+spectrum`) the edge-discovery partitions split round-robin over the host
+leaders (partition pi on host pi % N) and the disjoint per-host edge arrays
+merge by an element-wise sum over the hosts; every leader then derives the
+same chains.
 """
 
 from __future__ import annotations
@@ -61,12 +67,16 @@ def _extensions(rows: torch.Tensor, k: int):
 
 
 def solid_edges_host(suniq: np.ndarray, k: int, device,
-                     partition_rows: int = 1 << 20) -> dict:
+                     partition_rows: int = 1 << 20, n_procs: int = 1,
+                     pid: int = 0) -> dict:
     """Edge arrays of the solid dBG, streamed over partitions.
 
     suniq: (C, W) uint32 SOLID canonical k-mers in global sorted order.
     Returns succ_v/succ_o/outdeg/internal, each (C, 2), with node ids being
-    rows of suniq.
+    rows of suniq. With `n_procs` > 1, host `pid` handles the partitions
+    pi % n_procs == pid (rows of the others stay zero) and returns the
+    partial succ_v/succ_o/outdeg; the caller sums them over the hosts and
+    finalizes (assemble_host).
     """
     C, W = suniq.shape
     skeys = pack_rows(suniq)
@@ -74,7 +84,9 @@ def solid_edges_host(suniq: np.ndarray, k: int, device,
     succ_v = np.zeros((C, 2), np.int32)
     succ_o = np.zeros((C, 2), np.int32)
 
-    for s in range(0, C, partition_rows):
+    for pi, s in enumerate(range(0, C, partition_rows)):
+        if pi % n_procs != pid:
+            continue
         e = min(s + partition_rows, C)
         rows = torch.as_tensor(suniq[s:e].astype(np.int64), device=device)
         cand, is_fwd = _extensions(rows, k)
@@ -103,8 +115,8 @@ def solid_edges_host(suniq: np.ndarray, k: int, device,
             succ_v[s:e, o] = v
             succ_o[s:e, o] = osel
 
-    return finalize_edges({"succ_v": succ_v, "succ_o": succ_o,
-                           "outdeg": outdeg})
+    partial = {"succ_v": succ_v, "succ_o": succ_o, "outdeg": outdeg}
+    return partial if n_procs > 1 else finalize_edges(partial)
 
 
 def finalize_edges(partial: dict) -> dict:
@@ -121,16 +133,27 @@ def finalize_edges(partial: dict) -> dict:
 
 
 def assemble_host(host: HostSpectrum, t: int, k: int, device,
-                  partition_rows: int = 1 << 20) -> list[str]:
+                  partition_rows: int = 1 << 20, n_procs: int = 1,
+                  pid: int = 0) -> list[str]:
     """Unitig sequences from a host-resident spectrum. Device memory is
     bounded by one edge-discovery partition; the solid set, the edge tables
-    and the chains stay on the host."""
+    and the chains stay on the host. With `n_procs` > 1 every host leader
+    holds the same replicated spectrum and calls this: each discovers the
+    edges of its partitions, and an element-wise sum over the hosts
+    (unowned partitions contributed zeros) completes the tables."""
     sidx = host.solid_indices(t)
     suniq = np.ascontiguousarray(host.uniq[sidx])
     C = len(suniq)
     log.info("assemble[host]: %d solid k-mers", C)
     if C == 0:
         return []
-    edges = solid_edges_host(suniq, k, device, partition_rows)
+    edges = solid_edges_host(suniq, k, device, partition_rows, n_procs, pid)
+    if n_procs > 1:
+        from kmerax_torch.dist.mesh import host_allgather
+
+        edges = finalize_edges({
+            key: host_allgather(edges[key], leaders=True).sum(axis=0)
+            .astype(edges[key].dtype)
+            for key in ("succ_v", "succ_o", "outdeg")})
     arrays = chains_from_edges_np(suniq, np.ones(C, dtype=bool), edges, k)
     return emit_unitigs(suniq, arrays, k)

@@ -3,8 +3,11 @@ DESIGN.md §9).
 
 `chains_from_edges_np` and `emit_unitigs` are numpy copies of the JAX
 package's host functions (their module imports JAX). The monolithic device
-assembly is not carried over: `assemble_to_fasta` always takes the
-host-resident partitioned path (graph/partitioned.py).
+assembly is not carried over: `assemble_to_fasta` takes the host-resident
+partitioned path (graph/partitioned.py), split over the hosts of a
+multi-host mesh when the spectrum is replicated, or the distributed
+assembly (graph/sharded.py) when it is range-sharded over N > 1 hosts, as
+kmerax/graph/unitig.py::assemble_to_fasta dispatches.
 """
 
 from __future__ import annotations
@@ -157,12 +160,24 @@ def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
     If corrected_fastq (path or list of paths, e.g. paired-end R1/R2) is
     given, the spectrum is first re-counted from it on `device` (the
     pipeline assembles corrected reads; the re-count's metrics go to
-    `metrics` as a second "count" stage). Returns the unitig count.
+    `metrics` as a second "count" stage). Returns the unitig count, the
+    same on every rank.
+
+    On one host of a mesh every rank holds the same global spectrum, so
+    rank 0 alone derives the unitigs. Across N > 1 hosts the host leaders
+    assemble: a range-sharded spectrum (the default) through
+    graph/sharded.py::assemble_sharded, a replicated one through the
+    partitioned path with its edge discovery split over the hosts; the
+    other local ranks wait for the count.
     """
+    import numpy as np
+
     from kmerax_torch.dist import mesh as dmesh
     from kmerax_torch.graph.partitioned import assemble_host
+    from kmerax_torch.graph.sharded import assemble_sharded
     from kmerax_torch.io.fasta import write_fasta
     from kmerax_torch.pipeline.count import run_count
+    from kmerax_torch.spectrum.host_sharded import ShardedHostSpectrum
 
     if device is None:
         device = (state.bloom_table if state.bloom_table is not None
@@ -171,15 +186,31 @@ def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
         paths = ([corrected_fastq] if isinstance(corrected_fastq, str)
                  else list(corrected_fastq))
         state = run_count(cfg, paths, device=device, metrics=metrics)
-    if state.host is None:
-        raise ValueError("assembly needs exact_spectrum=True")
-    # on a mesh every rank holds the same global spectrum, so rank 0 alone
-    # derives the unitigs and writes them; the others take its count
     mesh = dmesh.current()
-    n = None
-    if dmesh.is_writer():
-        seqs = assemble_host(state.host, state.threshold, cfg.k,
-                             device=device if mesh is None else mesh.device)
-        write_fasta(out_fasta, seqs)
-        n = len(seqs)
-    return n if mesh is None else mesh.broadcast_int(n)
+    hosts = mesh is not None and mesh.n_hosts > 1
+    works = mesh.is_leader if hosts else dmesh.is_writer()
+    if works and state.host is None:
+        raise ValueError("assembly needs exact_spectrum=True")
+    if mesh is not None:
+        device = mesh.device
+    n = 0
+    if works:
+        host, t = state.host, state.threshold
+        if isinstance(host, ShardedHostSpectrum) and host.n_procs > 1:
+            n = assemble_sharded(host, t, cfg.k, out_fasta, device=device)
+        else:
+            if isinstance(host, ShardedHostSpectrum):
+                host = host.local
+            seqs = assemble_host(
+                host, t, cfg.k, device=device,
+                **(dict(n_procs=mesh.n_hosts, pid=mesh.host) if hosts
+                   else {}))
+            if dmesh.is_writer():
+                write_fasta(out_fasta, seqs)
+            n = len(seqs)
+    if mesh is None:
+        return n
+    if hosts:
+        return int(dmesh.host_broadcast(np.asarray([n], np.int64))[0])
+    return mesh.broadcast_int(n)
+

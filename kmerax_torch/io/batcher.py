@@ -52,7 +52,7 @@ def batch_reads(paths, batch_size: int, max_len: int,
     batches, except that native FastqRecords carry an empty `seq` (bases
     are authoritative).
     """
-    if isinstance(paths, str):
+    if isinstance(paths, (str, tuple)):
         paths = [paths]
     if use_native is None:
         from kmerax_torch.io.native import get_lib
@@ -62,7 +62,11 @@ def batch_reads(paths, batch_size: int, max_len: int,
         return
     buf: list[FastqRecord] = []
     for p in paths:
-        for rec in FastqReader(p):
+        rng = None
+        if isinstance(p, tuple):            # (path, start, end) byte range
+            p, start, end = p
+            rng = (start, end)
+        for rec in FastqReader(p, byte_range=rng):
             buf.append(rec)
             if len(buf) == batch_size:
                 yield _pack(buf, batch_size, max_len)
@@ -100,11 +104,21 @@ def _batch_reads_native(paths, batch_size: int, max_len: int):
             npend -= take
 
     for p in paths:
+        left = None
+        if isinstance(p, tuple):            # (path, start, end) byte range
+            p, start, end = p
+            left = end - start
         with _open_r(p) as f:
+            if left is not None:
+                f.seek(start)
             tail = b""
             eof = False
             while not eof:
-                chunk = f.read(_NATIVE_CHUNK)
+                want = _NATIVE_CHUNK if left is None \
+                    else min(_NATIVE_CHUNK, left)
+                chunk = f.read(want) if want else b""
+                if left is not None:
+                    left -= len(chunk)
                 if not chunk:
                     eof = True
                     if not tail:

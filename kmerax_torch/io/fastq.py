@@ -59,18 +59,34 @@ class FastqRecord:
 
 
 class FastqReader:
-    """Iterates FastqRecord from a (possibly gzipped) FASTQ file."""
+    """Iterates FastqRecord from a (possibly gzipped) FASTQ file.
 
-    def __init__(self, path: str):
+    `byte_range=(start, end)`: parse only that record-aligned slice of a
+    plain file (io/shard.py::snap_to_record boundaries), the per-host
+    byte-range shard."""
+
+    def __init__(self, path: str, byte_range: tuple[int, int] | None = None):
         self.path = path
+        self.byte_range = byte_range
+        if byte_range is not None and str(path).endswith(".gz"):
+            raise ValueError("byte ranges require a plain (non-.gz) FASTQ")
 
     def __iter__(self):
         tail = b""
         nline = 0
         fields = [b"", b"", b""]  # name, seq, (plus ignored), qual
+        remaining = None
         with _open_r(self.path) as f:
+            if self.byte_range is not None:
+                s, e = self.byte_range
+                f.seek(s)
+                remaining = e - s
             while True:
-                chunk = f.read(_CHUNK)
+                want = _CHUNK if remaining is None else min(_CHUNK,
+                                                            remaining)
+                chunk = f.read(want) if want else b""
+                if remaining is not None:
+                    remaining -= len(chunk)
                 if not chunk:
                     break
                 lines = (tail + chunk).split(b"\n")

@@ -18,7 +18,11 @@ when a caller asks for it.
 On a mesh of more than one device (`cfg.mesh_data * cfg.mesh_bucket > 1`)
 `run_count` takes `run_count_sharded`: each rank counts its rows of every
 batch into its range shard of the table through the bucket all-to-all and
-kernel K1r (spectrum/sharded.py).
+kernel K1r (spectrum/sharded.py). Across N > 1 hosts with per-host I/O
+each host parses only its own input shards (io/shard.py), the hosts trade
+(has_more, n_local) every batch to stay in lockstep, and by default the
+leaders range-shard the exact spectrum over the hosts
+(spectrum/host_sharded.py).
 """
 
 from __future__ import annotations
@@ -215,6 +219,56 @@ def _finish_count(cfg, host_ex, k, n_reads, n_kmers, tag="count"):
     return host, hist, exact_cap, t
 
 
+def use_per_host_io(cfg: KmeraxConfig, paths, mesh) -> bool:
+    """Per-host input sharding (kmerax/pipeline/run.py::_use_per_host_io):
+    across N > 1 hosts with `per_host_io`, given at least one file a host
+    or plain (non-.gz) files, which split into record-aligned byte ranges,
+    so a single big FASTQ still parses 1/N a host."""
+    if mesh is None or mesh.n_hosts <= 1 or not cfg.per_host_io:
+        return False
+    return (len(paths) >= mesh.n_hosts
+            or not any(str(p).endswith(".gz") for p in paths))
+
+
+def _mesh_batches(cfg: KmeraxConfig, paths, mesh):
+    """Yield (this rank's (b, L) int8 rows of a global batch, the real
+    reads in that global batch) for the mesh count loop.
+
+    One host: every rank parses every input and takes its rows. Per-host
+    I/O (kmerax/pipeline/run.py::_global_batches): the ranks of host p
+    parse only local_shards(paths, N, p), in batches of B/N rows, each
+    taking its local rank's slice; every batch the hosts trade
+    (has_more, n_local) over the hosts group and a host that has run out
+    feeds empty rows (base code 4). Counting is order-free, so the spectrum
+    is the one-process stream's (DESIGN.md §13)."""
+    from kmerax_torch.dist.mesh import host_allgather
+    from kmerax_torch.io.shard import local_shards
+
+    B, L = cfg.batch_reads, cfg.max_read_len
+    if not use_per_host_io(cfg, paths, mesh):
+        rows = mesh.row_slice(B)
+        for batch in BackgroundBatcher(paths, B, L):
+            yield batch.bases[rows].astype(np.int8), batch.n
+        return
+    N, p = mesh.n_hosts, mesh.host
+    mesh.row_slice(B)                   # B divides by the world
+    lp = local_shards(paths, N, p)
+    log.info("count[per-host]: process %d parses %d shards of %d files: %s",
+             p, len(lp), len(paths), [str(x) for x in lp])
+    rows = mesh.local_row_slice(B // N)
+    empty = np.full((rows.stop - rows.start, L), 4, np.int8)
+    it = iter(BackgroundBatcher(lp, B // N, L)) if lp else iter(())
+    while True:
+        batch = next(it, None)
+        flags = host_allgather(np.asarray(
+            [0 if batch is None else 1, 0 if batch is None else batch.n],
+            np.int64))
+        if flags[:, 0].sum() == 0:
+            break
+        yield (empty if batch is None
+               else batch.bases[rows].astype(np.int8)), int(flags[:, 1].sum())
+
+
 def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
                       k: Optional[int] = None,
                       metrics: Optional[MetricsWriter] = None,
@@ -223,8 +277,10 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
     §12), on every rank of it: `mesh`, else this process's current mesh of
     the config's shape.
 
-    Every rank parses the same inputs and counts its rows of each batch
-    (int8 on the device): route to the bucket owners, K1r into the owner's
+    Every rank takes its rows of each global batch (`_mesh_batches`: all
+    ranks parse every input on one host, each host its own shards across
+    hosts) and counts them (int8 on the device): route to the bucket
+    owners, K1r into the owner's
     partial slice, the valid routed rows appended to its pending buffer,
     which the host merges when a batch's worst case (recv_rows) no longer
     fits and at the end. A route overflow anywhere
@@ -232,9 +288,14 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
     and the batch replays, and after 8 clean batches it halves back toward
     the baseline. At the end the slices merge over "data" (kept as
     `sharded_table`) and, within REPLICATE_TABLE_BUDGET, are gathered over
-    "bucket" into the replicated table; every rank's host spectrum is
-    unioned into the global one. Counts are order-free sums, so the table
-    and the spectrum are those of the one-device count (DESIGN.md §13)."""
+    "bucket" into the replicated table. The ranks' host spectra become
+    the global one: on one host (or with `shard_host_spectrum=False`) it is
+    unioned onto every rank; across N > 1 hosts by default each host's
+    ranks merge theirs onto the host leader, and the leaders range-shard
+    the union over the hosts (`state.host` a ShardedHostSpectrum on the
+    leaders, None on the other ranks; the histogram and threshold are
+    global everywhere). Counts are order-free sums, so the table and the
+    spectrum are those of the one-device count (DESIGN.md §13)."""
     import dataclasses
 
     from kmerax_torch.dist import mesh as dmesh
@@ -253,7 +314,8 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
                          f"{mesh.device}")
     device = mesh.device
     D, S = mesh.spec.data, mesh.spec.bucket
-    rows = mesh.row_slice(cfg.batch_reads)
+    if isinstance(paths, (str, tuple)):
+        paths = [paths]
     sp = ShardedParams(bloom_params(cfg, k), n_shards=S)
     w = num_words(k)
     n_flat = (cfg.batch_reads // (D * S)) * (cfg.max_read_len - k + 1)
@@ -313,8 +375,8 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
         step = steps_by_safety[new_safety]
 
     m.stage_start("count")
-    for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
-        bases = torch.from_numpy(batch.bases[rows].astype(np.int8)).to(device)
+    for rows_np, n_real in _mesh_batches(cfg, paths, mesh):
+        bases = torch.from_numpy(rows_np).to(device)
         while True:
             nk, ovf, n_new = step(table, pending, bases, off)
             if ovf == 0:
@@ -339,7 +401,7 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
             if off + step_rows > pend_rows:
                 flush(pending, off)
                 off = 0
-        n_reads += batch.n
+        n_reads += n_real
         n_kmers += nk
         if sp.route_safety > base_safety:
             clean_streak += 1
@@ -365,18 +427,53 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
                  sp.bloom.width * 4)
         merge_keep_sharded(table, mesh)
         merged = None
-    if cfg.exact_spectrum:
-        host_ex = allgather_spectrum(*host_ex, mesh)
+    tag = f"count[mesh {D}x{S}]"
+    shard = cfg.shard_host_spectrum is not False and mesh.n_hosts > 1
+    if cfg.exact_spectrum and shard:
+        host, hist, exact_cap, t = _shard_host_spectrum(
+            cfg, host_ex, k, mesh, n_reads, n_kmers, tag)
     else:
-        host_ex = None
-    host, hist, exact_cap, t = _finish_count(
-        cfg, host_ex, k, n_reads, n_kmers, tag=f"count[mesh {D}x{S}]")
+        if cfg.exact_spectrum:
+            host_ex = allgather_spectrum(*host_ex, mesh)
+        else:
+            host_ex = None
+        host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
+                                                 n_kmers, tag=tag)
     m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t,
                 route_retries=LAST_COUNT_RETRIES,
                 route_safety_end=sp.route_safety)
     log.info("count[mesh]: threshold=%d", t)
     return CountState(cfg, merged, hist, t, n_reads, n_kmers, host=host,
                       exact_cap=exact_cap, sharded=sp, sharded_table=table)
+
+
+def _shard_host_spectrum(cfg, host_ex, k, mesh, n_reads, n_kmers, tag):
+    """The end of a multi-host count with the range-sharded spectrum (the
+    default, kmerax/pipeline/run.py:546-551): each host's ranks merge their
+    spectra onto every local rank (over the local group), the leaders
+    range-shard the host spectra over the hosts, and rank 0's global
+    histogram reaches every rank over the hosts group. Returns
+    _finish_count's (host, hist, exact_cap, threshold): host is this
+    leader's ShardedHostSpectrum, None on the other ranks; no padded exact
+    form exists."""
+    from kmerax_torch.dist.mesh import host_broadcast
+    from kmerax_torch.spectrum.host_sharded import shard_spectrum
+    from kmerax_torch.spectrum.sharded import allgather_spectrum
+
+    rows, counts = allgather_spectrum(*host_ex, mesh, mesh.local_group)
+    host = None
+    hist = np.zeros(256, np.int64)
+    if mesh.is_leader:
+        host = shard_spectrum(rows, counts, k, mesh.host, mesh.n_hosts)
+        n_unique = host.n_unique
+        hist = host.histogram(255)
+        log.info("%s: %d reads, %d k-mers, %d distinct (%d resident on "
+                 "host %d)", tag, n_reads, n_kmers, n_unique,
+                 host.n_unique_local, mesh.host)
+    del rows, counts
+    hist = host_broadcast(hist)
+    t = solid_threshold(hist, cfg.threshold)
+    return host, hist, None, t
 
 
 def count_state_from_numpy(cfg: KmeraxConfig, table, uniq, counts,

@@ -2,14 +2,14 @@
 on one device or on every rank of a mesh (port of
 kmerax/pipeline/run.py::run_pipeline). On a mesh rank 0 alone writes the
 metrics and the files, and aligns (the align stage runs on one device, as
-in the JAX package)."""
+in the JAX package); across hosts each host aligns its own shards."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 from kmerax_torch.config import KmeraxConfig
-from kmerax_torch.dist.mesh import is_writer
+from kmerax_torch.dist.mesh import is_writer, process_count
 from kmerax_torch.graph.unitig import assemble_to_fasta
 from kmerax_torch.pipeline import correct as _correct, count as _count
 from kmerax_torch.pipeline.align import run_align
@@ -42,7 +42,9 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
                                           device=device, metrics=m)
             m.stage_end("assemble", unitigs=n_unitigs)
             result["unitigs"] = n_unitigs
-            if validate and is_writer():
+            # one host: rank 0 aligns; across hosts every rank joins
+            # the per-host align
+            if validate and (is_writer() or process_count() > 1):
                 corrected = out_fastq if isinstance(out_fastq, (list, tuple)) \
                     else [out_fastq]
                 result["validate"] = run_align(cfg, corrected, out_fasta,
@@ -54,20 +56,32 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
 
 def observed() -> dict:
     """The last run's observables: the mesh count's route retries, end
-    route safety and host merges, and the mesh correction's path."""
-    return {"LAST_COUNT_RETRIES": _count.LAST_COUNT_RETRIES,
+    route safety and host merges, the mesh correction's path and the
+    shards this host corrected, and this process's kernel launches
+    (utils/cuda.py::LAUNCHES)."""
+    from kmerax_torch.utils import cuda
+
+    return {"LAUNCHES": dict(cuda.LAUNCHES),
+            "LAST_COUNT_RETRIES": _count.LAST_COUNT_RETRIES,
             "LAST_ROUTE_SAFETY": _count.LAST_ROUTE_SAFETY,
             "LAST_COUNT_FLUSHES": _count.LAST_COUNT_FLUSHES,
-            "LAST_CORRECT_PATH": _correct.LAST_CORRECT_PATH}
+            "LAST_CORRECT_PATH": _correct.LAST_CORRECT_PATH,
+            "LAST_CORRECT_SHARDS": _correct.LAST_CORRECT_SHARDS}
 
 
 def restore_observed(obs: dict) -> None:
     """Set `observed()` of another process (a mesh's rank 0) in this one,
-    so a caller reads them after a mesh run as after a local one."""
+    so a caller reads them after a mesh run as after a local one; rank 0's
+    kernel launches add to this process's counts."""
+    from kmerax_torch.utils import cuda
+
+    for name, n in obs["LAUNCHES"].items():
+        cuda.LAUNCHES[name] += n
     _count.LAST_COUNT_RETRIES = obs["LAST_COUNT_RETRIES"]
     _count.LAST_ROUTE_SAFETY = obs["LAST_ROUTE_SAFETY"]
     _count.LAST_COUNT_FLUSHES = obs["LAST_COUNT_FLUSHES"]
     _correct.LAST_CORRECT_PATH = obs["LAST_CORRECT_PATH"]
+    _correct.LAST_CORRECT_SHARDS = obs["LAST_CORRECT_SHARDS"]
 
 
 def with_observed(fn, *args):

@@ -7,7 +7,11 @@ its spectrum (pipeline/checkpoint.py) and every stage writes a done-marker,
 so a crashed run resumes from the last complete stage and re-runs only the
 unfinished ones; the resumed output is byte-identical to an uninterrupted
 run. On a mesh every rank runs the stages and rank 0 alone writes the
-checkpoints and markers, each marker after its files; a resumed mesh run
+checkpoints and markers, each marker after its files; across hosts with a
+range-sharded spectrum every host leader saves its shard, every rank waits
+at the `save_{stage}` barrier, and then rank 0 alone writes the marker; a
+resume loads this host's shard (`host_shard` manifests, raising on another
+host count). A resumed mesh run
 corrects through the replicated table ("fused"), since a checkpoint keeps
 no bucket-sharded one, and a checkpoint without the replicated table
 (counted past the replicate budget) refuses to resume.
@@ -21,7 +25,7 @@ from typing import Optional
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.dist import mesh as dmesh
 from kmerax_torch.graph.unitig import assemble_to_fasta
-from kmerax_torch.pipeline.checkpoint import load_spectrum, save_spectrum, \
+from kmerax_torch.pipeline.checkpoint import load_spectrum, save_state, \
     state_from_checkpoint
 from kmerax_torch.pipeline.correct import run_correct
 from kmerax_torch.pipeline.count import CountState, run_count
@@ -58,7 +62,9 @@ def _count_stage(cfg: KmeraxConfig, paths, workdir, stage: str,
     its table on `device`."""
     spec_dir = workdir and os.path.join(workdir, stage)
     if _is_done(workdir, stage):
-        manifest, arrays = load_spectrum(spec_dir)
+        manifest, arrays = load_spectrum(spec_dir,
+                                         pid=dmesh.process_index(),
+                                         n_procs=dmesh.process_count())
         if manifest is not None:
             log.info("%s: resumed from checkpoint", stage)
             if "bloom_table" not in arrays:
@@ -74,10 +80,9 @@ def _count_stage(cfg: KmeraxConfig, paths, workdir, stage: str,
                                          host_form=True)
     state = run_count(cfg, paths, metrics=m, device=device)
     if workdir is not None:
-        if dmesh.is_writer():
-            save_spectrum(spec_dir, state, stage=stage,
-                          extra={"n_reads": state.n_reads,
-                                 "n_kmers": state.n_kmers})
+        save_state(spec_dir, state, stage=stage,
+                   extra={"n_reads": state.n_reads,
+                          "n_kmers": state.n_kmers})
         _mark_done(workdir, stage)
     return state
 

@@ -231,27 +231,29 @@ def routed_query_fn(sp: ShardedParams, table_shard: torch.Tensor, mesh):
     return qf
 
 
-def allgather_spectrum(rows: np.ndarray, counts: np.ndarray, mesh):
+def allgather_spectrum(rows: np.ndarray, counts: np.ndarray, mesh,
+                       group=None):
     """Union every rank's host spectrum (rows (N_r, W) uint32, counts (N_r,)
-    int64; sizes differ between ranks) into the one global sorted spectrum
-    on every rank: a padded all-gather over the world, then one host merge
-    (deterministic, so every rank derives the identical spectrum). Each
-    rank holds only the rows routed to it, so unlike the JAX package's
-    one-process mesh this always gathers when the world is larger than
-    1."""
-    if mesh.world == 1:
+    int64; sizes differ between ranks) into one sorted spectrum on every
+    rank of `group` (the world if None): a padded all-gather on the device
+    over the group, then one host merge (deterministic, so every rank
+    derives the identical spectrum). Each rank holds only the rows routed
+    to it, so unlike the JAX package's one-process mesh this always gathers
+    when the group is larger than 1 (over a host's local group it is that
+    host's spectrum)."""
+    if dist.get_world_size(group) == 1:
         return rows, counts
     dev = mesh.device
     w = rows.shape[1]
     n = mesh.all_gather_rows(torch.tensor([len(rows)], dtype=torch.int64,
-                                          device=dev)).tolist()
+                                          device=dev), group).tolist()
     maxn = max(n)
     pr = torch.full((maxn, w), -1, dtype=torch.int32, device=dev)
     pr[:len(rows)] = torch.from_numpy(rows.view(np.int32)).to(dev)
     pc = torch.zeros(maxn, dtype=torch.int64, device=dev)
     pc[:len(rows)] = torch.from_numpy(counts).to(dev)
-    allr = mesh.all_gather_rows(pr).cpu().numpy().view(np.uint32)
-    allc = mesh.all_gather_rows(pc).cpu().numpy()
+    allr = mesh.all_gather_rows(pr, group).cpu().numpy().view(np.uint32)
+    allc = mesh.all_gather_rows(pc, group).cpu().numpy()
     parts_r = [allr[p * maxn:p * maxn + n[p]] for p in range(len(n))]
     parts_c = [allc[p * maxn:p * maxn + n[p]] for p in range(len(n))]
     return np_merge_counted(np.concatenate(parts_r), np.concatenate(parts_c))

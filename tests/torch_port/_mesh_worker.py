@@ -21,7 +21,22 @@ Steps ("kind"):
   route     this rank's k-mers (from an .npz the test wrote) through
             route_prep, the all-to-all and route_back; every rank saves
             what it sent, received and got back
-A job's `budget` replaces REPLICATE_TABLE_BUDGET before its steps.
+  correct   run_count, then run_correct to `out_fastq` (one path or a
+            list); rank 0 saves the stats and the correct path, each host
+            leader the shards its host corrected
+  align     run_align of `paths` against `contigs` into `out_tsv`; rank 0
+            saves the stats
+  shardspec run_count, then graph/sharded.py::assemble_sharded on the host
+            leaders with small partitions and chunks; each leader saves its
+            resident rows, the exchanges' counts and LAST_STATS, and with
+            `ckpt` its shard of the spectrum checkpoint first
+            (`spectrum_chunk` sets shard_spectrum's rows a step)
+  emptyrange assemble_sharded of a 1,500 bp genome's k-mers, all held by
+            host 0 (host 1's key range is empty)
+  assemble_ckpt  this host's shard of a sharded checkpoint (load_spectrum
+            with this host's geometry), then assemble_to_fasta
+A job's `budget` replaces REPLICATE_TABLE_BUDGET before its steps, and its
+`hosts` (default 1) is the number of hosts the world splits into.
 """
 
 import json
@@ -45,6 +60,13 @@ def _count(step, mesh, out):
 
     cfg = _cfg(step, mesh)
     state = count.run_count(cfg, step["paths"], device="cpu")
+    if mesh.n_hosts > 1:
+        if mesh.is_leader:
+            _save_json(out, f"{step['name']}_h{mesh.host}", {
+                "host": type(state.host).__name__,
+                "threshold": state.threshold,
+                "hist": [int(x) for x in state.hist]})
+        return
     if mesh.rank == 0:
         table = state.bloom_table
         np.savez(os.path.join(out, f"{step['name']}.npz"),
@@ -118,8 +140,114 @@ def _route(step, mesh, out):
              back=back.numpy().view(np.uint32))
 
 
+def _save_json(out, name, obj):
+    with open(os.path.join(out, f"{name}.json"), "w") as f:
+        json.dump(obj, f)
+
+
+def _correct(step, mesh, out):
+    import kmerax_torch.pipeline.correct as correct
+    from kmerax_torch.pipeline.count import run_count
+
+    cfg = _cfg(step, mesh)
+    state = run_count(cfg, step["paths"], device="cpu")
+    stats = correct.run_correct(cfg, step["paths"], state, step["out_fastq"],
+                                device="cpu")
+    if mesh.is_leader:
+        _save_json(out, f"{step['name']}_h{mesh.host}", {
+            "stats": stats, "path": correct.LAST_CORRECT_PATH,
+            "shards": correct.LAST_CORRECT_SHARDS})
+
+
+def _align(step, mesh, out):
+    from kmerax_torch.pipeline.align import run_align
+
+    stats = run_align(_cfg(step, mesh), step["paths"], step["contigs"],
+                      step["out_tsv"], device="cpu")
+    if mesh.rank == 0:
+        _save_json(out, step["name"], stats)
+
+
+def _shardspec(step, mesh, out):
+    import kmerax_torch.graph.sharded as gs
+    import kmerax_torch.spectrum.host_sharded as hs
+    from kmerax_torch.pipeline.count import run_count
+
+    cfg = _cfg(step, mesh)
+    hs.EXCHANGE_CHUNK = step.get("spectrum_chunk", hs.EXCHANGE_CHUNK)
+    state = run_count(cfg, step["paths"], device="cpu")
+    if not mesh.is_leader:
+        return
+    host = state.host
+    n_local, n_global = host.n_unique_local, host.n_unique
+    exchange = dict(hs.LAST_EXCHANGE)
+    if step.get("ckpt"):
+        from kmerax_torch.pipeline.checkpoint import save_spectrum
+
+        save_spectrum(step["ckpt"], state)
+    n = gs.assemble_sharded(host, state.threshold, cfg.k,
+                            os.path.join(out, f"{step['name']}.fasta"),
+                            device="cpu", partition_rows=256,
+                            chunk=step.get("chunk", 1 << 12))
+    _save_json(out, f"{step['name']}_h{mesh.host}", {
+        "resident": n_local, "distinct": n_global, "exchange": exchange,
+        "stats": dict(gs.LAST_STATS), "unitigs": n,
+        "threshold": state.threshold})
+
+
+def _emptyrange(step, mesh, out):
+    from kmerax_torch.core.codec import canonical_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.graph.sharded import assemble_sharded
+    from kmerax_torch.spectrum.exact import np_merge_counted
+    from kmerax_torch.spectrum.host import HostSpectrum
+    from kmerax_torch.spectrum.host_sharded import ShardedHostSpectrum
+
+    k = 31
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, 1500).astype(np.int32)
+    words, valid = extract_kmers(torch.from_numpy(genome[None]), k)
+    canon, _ = canonical_words(words, k)
+    rows = canon[0][valid[0]].numpy().astype(np.uint32)
+    uniq, counts = np_merge_counted(rows, np.ones(len(rows), np.int64))
+    if mesh.host == 0:                 # host 0 owns everything
+        local = HostSpectrum(uniq, counts, k)
+    else:
+        local = HostSpectrum(np.zeros((0, 2), np.uint32),
+                             np.zeros(0, np.int64), k)
+    if mesh.is_leader:
+        shost = ShardedHostSpectrum(local, k, mesh.n_hosts, mesh.host,
+                                    np.full(mesh.n_hosts - 1,
+                                            0xFFFFFFFFFFFFFFFF, np.uint64))
+        n = assemble_sharded(shost, 1, k,
+                             os.path.join(out, f"{step['name']}.fasta"),
+                             device="cpu", partition_rows=128,
+                             chunk=1 << 10)
+        _save_json(out, f"{step['name']}_h{mesh.host}", {"unitigs": n})
+
+
+def _assemble_ckpt(step, mesh, out):
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.graph.unitig import assemble_to_fasta
+    from kmerax_torch.pipeline.checkpoint import load_spectrum, \
+        state_from_checkpoint
+
+    manifest, arrays = load_spectrum(step["dir"], mesh.host, mesh.n_hosts)
+    cfg = KmeraxConfig(**manifest["config"]).replace(
+        mesh_data=mesh.spec.data, mesh_bucket=mesh.spec.bucket)
+    state = state_from_checkpoint(cfg, manifest, arrays, "cpu",
+                                  host_form=True)
+    n = assemble_to_fasta(cfg, state, step["out_fasta"], device="cpu")
+    if mesh.is_leader:
+        _save_json(out, f"{step['name']}_h{mesh.host}", {
+            "unitigs": n, "host": type(state.host).__name__,
+            "shard": manifest["host_shard"]})
+
+
 STEPS = {"count": _count, "pipeline": _pipeline, "twopass": _twopass,
-         "remove": _remove, "route": _route}
+         "remove": _remove, "route": _route, "correct": _correct,
+         "align": _align, "shardspec": _shardspec,
+         "emptyrange": _emptyrange, "assemble_ckpt": _assemble_ckpt}
 
 
 def main():
@@ -133,7 +261,7 @@ def main():
     if job.get("budget") is not None:
         count.REPLICATE_TABLE_BUDGET = job["budget"]
     mesh = dmesh.init_mesh(dmesh.MeshSpec(*job["mesh"]), "cpu", rank, world,
-                           init)
+                           init, job.get("hosts", 1))
     try:
         for step in job["steps"]:
             STEPS[step["kind"]](step, mesh, job["out"])

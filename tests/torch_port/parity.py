@@ -115,3 +115,28 @@ def run_mesh(jobs, tmp_path, timeout=MESH_TIMEOUT):
     bad = [(log.name, p.returncode) for p, log in procs if p.returncode]
     assert not bad, "\n".join(f"{name} exited {rc}:\n" + open(name).read()
                               for name, rc in bad)
+
+
+def hosts_probe(big: int):
+    """Run on every rank of an emulated multi-host mesh (dist/mesh.py::
+    launch): this rank's host, local rank and leader flag, and, on the
+    leaders, host_allgather of a full 64-bit value and a host_exchange of
+    one (rank-tagged) row to every host. Returns a dict."""
+    import numpy as np
+
+    from kmerax_torch.dist import mesh as dmesh
+
+    m = dmesh.current()
+    out = {"host": m.host, "local_rank": m.local_rank,
+           "leader": m.is_leader, "index": dmesh.process_index(),
+           "count": dmesh.process_count(),
+           "flags": dmesh.host_allgather(
+               np.asarray([m.rank, m.host], np.int64)).tolist()}
+    if m.is_leader:
+        out["gathered"] = dmesh.host_allgather(
+            np.asarray([big + m.host], np.uint64), leaders=True).tolist()
+        parts = [np.asarray([[m.host, q]] * (q + 1), np.int64)
+                 for q in range(m.n_hosts)]
+        out["received"] = [r.tolist() for r in dmesh.host_exchange(parts)]
+    dmesh.host_barrier("probe")
+    return out

@@ -13,6 +13,7 @@ import tempfile
 
 import numpy as np
 import pytest
+import torch
 
 import kmerax.bench.runners as j_runners
 import kmerax.pipeline.run as j_run
@@ -193,9 +194,32 @@ def test_acceptance_cli_matches_jax(jax_reports, monkeypatch, tmp_path, n):
 
 
 @pytest.mark.parametrize("argv", [["--scaling"], ["--hosts", "1", "2"]])
-def test_bench_scaling_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["bench", *argv, "--device", "cpu"])
+def test_bench_scaling_not_ported(argv, monkeypatch):
+    """`bench --scaling [--hosts ...]` and `bench --acceptance N --hosts M`
+    are ported now (bench/scaling.py, bench/acceptance_mp.py; their runs
+    are held in test_torch_multihost_bench.py): the CLI hands them the host
+    counts and the device. `--hosts` without either is ignored, as in the
+    JAX CLI."""
+    import kmerax_torch.bench.acceptance_mp as amp
+    import kmerax_torch.bench.runners as runners
+    import kmerax_torch.bench.scaling as scaling
+
+    calls = []
+    monkeypatch.setattr(scaling, "run_scaling",
+                        lambda **kw: calls.append(("scaling", kw)) or {})
+    monkeypatch.setattr(amp, "run_config_mp",
+                        lambda n, **kw: calls.append(("mp", n, kw)) or {})
+    monkeypatch.setattr(runners, "run_preset",
+                        lambda *a, **kw: calls.append(("preset",)) or {})
+    main(["bench", *argv, "--device", "cpu"])
+    main(["bench", "--acceptance", "4", *argv, "--device", "cpu"])
+    dev = torch.device("cpu")
+    if argv == ["--scaling"]:
+        want = [("scaling", dict(host_counts=(1, 2, 4), device=dev))] * 2
+    else:
+        want = [("preset",), ("mp", 4, dict(scale="1.0", n_procs=1,
+                                             device=dev))]
+    assert calls == want
 
 
 def test_mesh_override_not_ported(tmp_path, monkeypatch):

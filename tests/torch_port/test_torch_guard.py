@@ -35,6 +35,11 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "kmerax_torch.dist.mesh" in mods
     assert "kmerax_torch.spectrum.sharded" in mods
+    # the multi-host modules
+    assert {"kmerax_torch.io.shard", "kmerax_torch.spectrum.host_sharded",
+            "kmerax_torch.graph.sharded", "kmerax_torch.bench.acceptance_mp",
+            "kmerax_torch.bench.scaling",
+            "kmerax_torch.bench._scaling_worker"} <= set(mods)
     code = (f"import importlib, sys; [importlib.import_module(m) for m in "
             f"{mods!r}];"
             " bad = [m for m in sys.modules"
@@ -63,6 +68,7 @@ def test_port_modules_import_nothing_of_jax():
                                           "oracle"):
                     bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert (Path(ROOT) / "kmerax_torch" / "dist" / "mesh.py").exists()
+    assert (Path(ROOT) / "kmerax_torch" / "graph" / "sharded.py").exists()
     assert not bad, bad
 
 
@@ -133,14 +139,26 @@ def test_native_parser_source_is_the_ports_own():
     assert native._so_path().parent == Path(ROOT) / "kmerax_torch" / "_build"
 
 
-@pytest.mark.parametrize("extra", [["--process-id", "1"],
-                                   ["--num-procs", "2", "--mesh-bucket", "2"],
-                                   ["--num-procs", "2"],
-                                   ["--coordinator", "localhost:1234"]])
-def test_unported_flags_fail(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["pipeline", "--in", "r.fastq", "--out-fastq", "o.fastq",
-              "--device", "cpu", *extra])
+@pytest.mark.parametrize("extra", [
+    ["--process-id", "2", "--num-procs", "2", "--mesh-data", "2"],
+    ["--num-procs", "4", "--process-id", "0", "--mesh-bucket", "2"],
+    ["--num-procs", "2", "--process-id", "0"],
+    []])
+def test_unported_flags_fail(tmp_path, extra, monkeypatch):
+    """The multi-host flags are ported now; a geometry that cannot run
+    fails loudly before any rank starts: a process id outside [0, N), a
+    mesh whose D·S does not divide over the N hosts (the last case reads
+    N and the process id from KMERAX_NUM_PROCS / KMERAX_PROCESS_INDEX, as
+    the JAX CLI does)."""
+    monkeypatch.setenv("KMERAX_NUM_PROCS", "3")
+    monkeypatch.setenv("KMERAX_PROCESS_INDEX", "1")
+    want = ("process id 2 outside" if extra[:2] == ["--process-id", "2"]
+            else "does not divide over")
+    with pytest.raises(ValueError, match=want):
+        main(["pipeline", "--in", "r.fastq", "--out-fastq",
+              str(tmp_path / "o.fastq"), "--device", "cpu",
+              "--coordinator", "127.0.0.1:1", *extra])
+    assert not (tmp_path / "o.fastq").exists()
 
 
 @pytest.mark.parametrize("kw", [dict(bloom_counter="p16"),
