@@ -32,6 +32,13 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      on valid masks route_prep does not make; timed at S = 1, one shard of
      each S at each number of routed slots a thread, and at S = 1 on the
      same rows sorted by block and grouped by 512 and 256 MiB region.
+     K1, K2 and K3 on p16 counters (2^29 counters in 2^28 words) == their
+     plain versions at k = 25, 31, 63 under both schemes, K1's words
+     unpacked == min(its i32 table, SAT16) on the same batch, and a batch
+     whose one read is inserted until its counters pass SAT16; each p16
+     kernel timed as its i32 row at k=31, and K1-K3 on i32 and p16 counters
+     at 2^24 and 2^29 counters in turns (whether a 32 MiB p16 table in the
+     50 MB L2 beats a 64 MiB i32 one).
   3. small goldens: the port's pipeline on the card, under the hash and
      the minimizer bucket scheme, `correct --use-exact`, and `pipeline --k2
      63` must write corrected FASTQ and unitig FASTA bytes equal to the
@@ -62,8 +69,12 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      process each wire's copies and the count step's launches per batch
      under the profiler; BASELINE config 2 (S. cerevisiae PE100 80x, k=25)
      through `bench --acceptance 2 --scale 10`, held to its accuracy bars;
-     then the mesh count's driver (pipeline/count.py::run_count_sharded)
-     on the same reads over a world-size-1 NCCL group, its table, host
+     the same reads on p16 counters through `count --config c2_p16.toml`
+     (traced with KMERAX_TRACE_DIR: the trace names K1's p16 kernel) and
+     `correct --spectrum`, byte-equal to the i32 run, K1-K3 launched in
+     their p16 form; then the mesh count's driver
+     (pipeline/count.py::run_count_sharded) on the same reads over a
+     world-size-1 NCCL group, its table, host
      spectrum, histogram and threshold byte-equal to run_count's, with
      its wall and host merges beside run_count's, retries and K1r
      launches (one a batch). A mesh of more ranks than cards
@@ -255,6 +266,8 @@ def _per_launch_ms(fn, launches: int = 50, warm: int = 3):
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 INT32_OPS_PER_S = 132 * 64 * 1.98e9     # 132 SMs x 64 INT32 lanes x 1.98 GHz
 SECTOR = 32                             # bytes of one DRAM sector
+# bytes of one counter in each layout (a p16 counter is a halfword)
+_COUNTER_BYTES = {"i32": 4, "p16": 2}
 # phase 2's batch (reads x length) and table (log2 counters): config 1's
 K_READS, K_LEN, K_LOG2_WIDTH = 4096, 160, 29
 # the minimizer bucket scheme's settings (KmeraxConfig defaults): m = 11,
@@ -262,12 +275,12 @@ K_READS, K_LEN, K_LOG2_WIDTH = 4096, 160, 29
 MINIMIZER_M, LOG2_BUCKETS = 11, 8
 
 
-def _params(k, scheme="hash", log2_width=None):
+def _params(k, scheme="hash", log2_width=None, counter="i32"):
     """Phase 2's Bloom parameters: d = 4, 2^K_LOG2_WIDTH counters."""
     from kmerax_torch.spectrum.bloom import BloomParams
 
     return BloomParams(k, log2_width or K_LOG2_WIDTH, 4, MINIMIZER_M,
-                       LOG2_BUCKETS, scheme)
+                       LOG2_BUCKETS, scheme, counter)
 
 
 def _covered(kmers, span):
@@ -363,17 +376,25 @@ def _kmer_ops(W, n_windows, n_kmers, lanes, mmers=0):
     return ops
 
 
-def _probe_traffic(table, block, lanepack, valid, d, t=None):
+def _probe_traffic(table, block, lanepack, valid, d, t=None,
+                   counter="i32"):
     """(counters read, distinct 32-byte sectors) these k-mers need: all d
     lanes of every valid k-mer (the insert: t=None), or a probe's lanes up
-    to and including the first below t."""
+    to and including the first below t. A p16 block's lanes lie in word row
+    block >> 1, so its sectors are counted as the i32 row's."""
     import torch
 
     lanes = torch.stack([(lanepack.long() >> (7 * j)) & 127
                          for j in range(d)], dim=-1)
     need = valid.reshape(-1, 1).expand(-1, d).clone()
     if t is not None:
-        below = table[block.long()[:, None] * 128 + lanes] < t
+        blk = block.long()[:, None]
+        if counter == "p16":
+            vals = (table[(blk >> 1) * 128 + lanes].long()
+                    >> (16 * (blk & 1))) & 0xFFFF
+        else:
+            vals = table[blk * 128 + lanes]
+        below = vals < t
         passed = torch.cumprod((~below).to(torch.int32), dim=1).bool()
         need[:, 1:] &= passed[:, :-1]
     sec = lanes >> 3                    # 8 int32 counters per sector
@@ -493,7 +514,258 @@ def phase_kernels(device=DEVICE):
             f"{h['ms']:.4f} / {m['ms']:.4f} ms back to back, bound "
             f"{h['bound_ms']:.4f} ({h['bound_by']}) / {m['bound_ms']:.4f} "
             f"({m['bound_by']}) ms")
-    return recs + mz
+    return recs + mz + _check_p16(rng, device, recs[0]["library_ms"])
+
+
+def _check_p16(rng, device, index_add_ms):
+    """K1, K2 and K3 on p16 counters (2^29 counters, 1 GiB of words) ==
+    their plain versions at k = 25, 31 and 63 under both bucket schemes,
+    K1's words unpacked == min(K1's i32 table, SAT16), and the saturation
+    case (`_p16_saturation`); then the layouts' times at 2^24 and 2^29
+    counters (`_by_width`). Returns the p16 records, hash scheme, k=31
+    (max_abs_err over both schemes): no PyTorch call computes a
+    saturating halfword add or its probe, so library_ms is None, and the
+    i32 K1's `index_add_` time stands beside K1's for reference."""
+    import torch
+    from kmerax_torch.spectrum.bloom import make_table
+
+    recs = {}
+    for scheme in ("hash", "minimizer"):
+        got = [_check_k1_p16(rng, device, scheme)]
+        tk = make_table(_params(31, counter="p16"), device)
+        timed = (31,) if scheme == "hash" else ()
+        got.append(_check_k2(rng, tk, device, scheme=scheme, counter="p16",
+                             timed=timed))
+        got.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device,
+                             scheme=scheme, counter="p16", timed=timed))
+        del tk
+        torch.cuda.empty_cache()
+        for i, r in enumerate(got):
+            if i in recs:
+                recs[i]["max_abs_err"] = max(recs[i]["max_abs_err"],
+                                             r["max_abs_err"])
+            else:
+                recs[i] = r
+    recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"],
+                                 _p16_saturation(device))
+    recs[0]["index_add_i32_ms"] = index_add_ms
+    num(f"phase2 K1 bloom_insert_p16: library none (no one PyTorch call "
+        f"computes a saturating halfword add); for reference, the i32 "
+        f"index_add_ at the same batch's lanes {index_add_ms} ms")
+    widths = _by_width(rng, device)
+    out = [recs[i] for i in range(3)]
+    for r in out:
+        base = r["name"].removesuffix("_p16")
+        r["ms_by_width"] = {w: v[base] for w, v in widths.items()}
+    return out
+
+
+def _check_k1_p16(rng, device, scheme):
+    """K1 on p16 counters == its plain version on one config-1 batch (4096
+    x 160 int8 into 2^29 counters) at k = 25, 31 and 63 under the bucket
+    `scheme`: the words, the pending rows written from a nonzero row offset
+    and the valid count; and its words unpacked == min(K1's i32 table,
+    SAT16) on the same batch. Returns the record at k=31, timed as the
+    count step calls it, under the hash scheme; else {"max_abs_err"}."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import canonical_words, num_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.spectrum.bloom import SAT16, make_table, unpack16
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_insert, bloom_insert_plain
+    from kmerax_torch.spectrum.exact import sentinel_rows
+
+    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+    rec, err_max = None, 0
+    for k in (25, 31, 63):
+        p = _params(k, scheme, counter="p16")
+        reads, _ = _reads(rng, B, L, k)
+        bases = torch.as_tensor(reads.astype(np.int8), device=device)
+        W, rows = num_words(k), B * (L - k + 1)
+        outs = []
+        for fn in (bloom_insert, bloom_insert_plain):
+            table = make_table(p, device)
+            pending = sentinel_rows(2 * rows, W, device)
+            n_valid = fn(table, bases, p, pending, rows)
+            torch.cuda.synchronize()
+            outs.append((table, pending, n_valid))
+        (tk, pk, nk), (tp, pp, np_) = outs
+        err = max(int((tk - tp).abs().max()),
+                  int((pk.long() - pp.long()).abs().max()),
+                  abs(int(nk) - int(np_)))
+        if not (torch.equal(tk, tp) and torch.equal(pk, pp)
+                and int(nk) == int(np_)):
+            raise AssertionError(f"K1 p16 differs from plain at k={k}, "
+                                 f"{scheme} scheme (max {err})")
+        if not 0 < int(nk) < rows:
+            raise AssertionError(f"K1 p16 test is degenerate at k={k}")
+        del tp, pp, outs
+        t32 = make_table(_params(k, scheme), device)
+        bloom_insert(t32, bases, _params(k, scheme))
+        if not torch.equal(unpack16(tk), t32.clamp_(max=SAT16)):
+            raise AssertionError(f"K1 p16 words unpacked != min(K1 i32, "
+                                 f"SAT16) at k={k}, {scheme} scheme")
+        del t32
+        err_max = max(err_max, err)
+        say(f"phase2 K1 bloom_insert_p16 == plain at k={k}, {scheme} "
+            f"scheme: {B} x {L} int8 batch into 2^{LW} p16 counters "
+            f"({tk.numel()} words): words, {rows} pending rows from row "
+            f"{rows} and valid count {int(nk)} equal; words unpacked == "
+            f"min(K1's i32 table, SAT16)")
+        if k == 31 and scheme == "hash":
+            words, valid = extract_kmers(bases, k)
+            canon, _ = canonical_words(words, k)
+            blk, lp = blocks_lanepack(p, canon)
+            del words, canon
+            lanes, sectors = _probe_traffic(tk, blk.reshape(-1),
+                                            lp.reshape(-1),
+                                            valid.reshape(-1), d)
+            del blk, lp, valid
+            times = _timed(lambda: bloom_insert(tk, bases, p, pk, rows),
+                           lambda: bloom_insert_plain(tk, bases, p, pk,
+                                                      rows),
+                           "bloom_insert_kernel")
+            io_bytes = B * L + 4 * W * rows + 8
+            rec = _record("bloom_insert_p16", "kmerax_torch/csrc/bloom.cu",
+                          "kmerax/spectrum/pallas_bloom.py:97", err, times,
+                          io_bytes + 2 * _COUNTER_BYTES["p16"] * lanes,
+                          _kmer_ops(W, rows, int(nk), lanes),
+                          io_bytes + 2 * SECTOR * sectors, None, scheme)
+            _say_times(f"phase2 K1 bloom_insert_p16 at k={k}, {scheme} "
+                       f"scheme: {lanes} counter lanes in {sectors} "
+                       f"sectors", r=rec)
+        del tk, pk
+        torch.cuda.empty_cache()
+    if rec is None:
+        return {"max_abs_err": err_max}
+    rec["max_abs_err"] = err_max
+    return rec
+
+
+def _p16_saturation(device) -> int:
+    """One read's k-mers inserted until their p16 counters pass SAT16: a
+    batch of 4096 x 160 whose first 2048 rows are one read (130 k-mers at
+    k=31, so 2048 warps CAS the same words) and whose other rows are
+    random, inserted 17 times (34,816 times the read: past SAT16 by one
+    batch) into 2^24 counters
+    by K1 p16, by its plain version, and by K1 on i32 counters: the p16
+    words equal, unpacked == min(i32, SAT16), the read's counters at
+    SAT16. Returns the max abs difference (0)."""
+    import numpy as np
+    import torch
+    from kmerax_torch.spectrum.bloom import SAT16, make_table, unpack16
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
+        bloom_insert_plain
+
+    rng = np.random.default_rng(SEED + 16)
+    B, L, k = K_READS, K_LEN, 31
+    n = -(-(SAT16 + 1) // (B // 2)) + 1          # 17 at B = 4096
+    reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+    reads[:B // 2] = reads[0]
+    bases = torch.as_tensor(reads, device=device)
+    p, pi = _params(k, log2_width=24, counter="p16"), _params(k,
+                                                              log2_width=24)
+    tk, tp, t32 = make_table(p, device), make_table(p, device), \
+        make_table(pi, device)
+    for _ in range(n):
+        bloom_insert(tk, bases, p)
+        bloom_insert_plain(tp, bases, p)
+        bloom_insert(t32, bases, pi)
+    torch.cuda.synchronize()
+    err = int((tk - tp).abs().max())
+    if not torch.equal(tk, tp):
+        raise AssertionError(f"K1 p16 differs from plain at saturation "
+                             f"(max {err})")
+    c16 = unpack16(tk)
+    if not torch.equal(c16, t32.clamp(max=SAT16)):
+        raise AssertionError("K1 p16 unpacked != min(K1 i32, SAT16) at "
+                             "saturation")
+    n_sat = int((c16 == SAT16).sum())
+    if not (int(t32.max()) > SAT16 and n_sat >= 4 * (L - k + 1) // 2):
+        raise AssertionError(f"saturation case is degenerate: i32 max "
+                             f"{int(t32.max())}, {n_sat} counters at SAT16")
+    say(f"phase2 K1 bloom_insert_p16 saturation: one read in {B // 2} of "
+        f"{B} rows, {n} launches ({n * B // 2} times the read) into 2^24 "
+        f"counters: words == plain, unpacked == min(i32, SAT16) (i32 max "
+        f"{int(t32.max())}), {n_sat} counters at SAT16")
+    return err
+
+
+def _by_width(rng, device) -> dict:
+    """The L2 question: K1, K2 and K3 at k=31 (hash scheme) on i32 and on
+    p16 counters at the CLI's 2^24 counters (a 64 MiB i32 table, above the
+    50 MB L2; 32 MiB of p16 words, below it) and at config 1's 2^29. Each
+    kernel's own device ms per launch (profiler, 50 launches each, one
+    profiler session for the three), in turns i32, p16, p16, i32 on the same
+    inputs: K1 inserts one batch into a zeroed table (with its pending
+    rows), K2 and K3 then probe that table at t=3. Returns {"2^LW": {kernel:
+    {"i32": [ms, ms], "p16": [ms, ms]}}}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kmerax_torch.core.codec import num_words
+    from kmerax_torch.ops.correct_kernels import correct_eval_scores
+    from kmerax_torch.spectrum.bloom import make_table
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
+        bloom_query_solid
+    from kmerax_torch.spectrum.exact import sentinel_rows
+
+    B, L, k, Q, t = K_READS, K_LEN, 31, 4 * K_READS, 3
+    reads, lengths = _reads(rng, B, L, k)
+    fresh, flen = _reads(rng, B, L, k)
+    bases8 = torch.as_tensor(reads.astype(np.int8), device=device)
+    q = torch.as_tensor(np.concatenate([reads[:B // 2], fresh[B // 2:]]),
+                        device=device)
+    q_lj = torch.as_tensor(np.concatenate([lengths[:B // 2],
+                                           flen[B // 2:]]) - k,
+                           device=device)
+    lens = torch.as_tensor(lengths, device=device)
+    k3 = (torch.as_tensor(reads, device=device), lens, lens - k,
+          torch.as_tensor(rng.integers(0, B, Q).astype(np.int32),
+                          device=device),
+          torch.as_tensor(rng.integers(0, L, Q).astype(np.int32),
+                          device=device))
+    pending = sentinel_rows(B * (L - k + 1), num_words(k), device)
+    names = {"bloom_insert": "bloom_insert_kernel",
+             "bloom_query_solid": "bloom_query_solid_kernel",
+             "correct_eval_scores": "correct_eval_scores_kernel"}
+    out = {}
+    for lw in (24, K_LOG2_WIDTH):
+        res = {n: {"i32": [], "p16": []} for n in names}
+        for counter in ("i32", "p16", "p16", "i32"):
+            p = _params(k, "hash", lw, counter)
+            table = make_table(p, device)
+            calls = {
+                "bloom_insert": lambda: bloom_insert(table, bases8, p,
+                                                     pending, 0),
+                "bloom_query_solid": lambda: bloom_query_solid(
+                    table, q, q_lj, p, t),
+                "correct_eval_scores": lambda: correct_eval_scores(
+                    p, table, t, *k3)}
+            for fn in calls.values():          # warm-up; K1 fills 3 times
+                for _ in range(3):
+                    fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for fn in calls.values():
+                    for _ in range(50):
+                        fn()
+                torch.cuda.synchronize()
+            for name, kern in names.items():
+                us = [e.self_device_time_total / e.count
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and kern in e.key and e.count]
+                res[name][counter].append(us[0] * 1e-3 if us else None)
+            del table
+            torch.cuda.empty_cache()
+        out[f"2^{lw}"] = res
+        for name, v in res.items():
+            num(f"phase2 {name} at 2^{lw} counters (k=31, hash scheme), "
+                f"its own device ms per launch (profiler), turns i32, p16, "
+                f"p16, i32: i32 {v['i32']}, p16 {v['p16']}")
+    return out
 
 
 def _check_k1(rng, device, scheme="hash"):
@@ -840,7 +1112,7 @@ def _check_k1r(rng, device, scheme="hash"):
 
 
 def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
-              phase="phase2", scheme="hash"):
+              phase="phase2", scheme="hash", counter="i32", timed=None):
     """K2 == bloom_query_solid_plain at k in ks on a 4096 x 160 int32 batch
     (Ns, ragged lengths, 2 % of the reads shorter than k, so last_j < 0)
     whose first half `_fill3` inserted three times into the table `tk` and
@@ -855,14 +1127,18 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
     from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
         bloom_query_solid, bloom_query_solid_plain
 
-    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+    B, L, d = K_READS, K_LEN, 4
+    LW = (tk.numel() * (2 if counter == "p16" else 1)).bit_length() - 1
+    timed = ks if timed is None else timed
+    name = "bloom_query_solid" if counter == "i32" \
+        else "bloom_query_solid_p16"
 
     def cases():
         if real is not None:          # first: `_fill3` overwrites the table
             pk, t_real, (bases, last_j) = real
             yield f"k={pk.k}, main-path call", pk, t_real, bases, last_j
         for k in ks:
-            pk = _params(k, scheme, LW)
+            pk = _params(k, scheme, LW, counter)
             seen, slen = _reads(rng, B, L, k)
             _fill3(tk, pk, seen)
             fresh, flen = _reads(rng, B, L, k)
@@ -872,7 +1148,7 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
             lengths[short] = rng.integers(0, k, short.size)
             for i in short:
                 reads[i, lengths[i]:] = 4
-            yield (f"k={k}, {scheme} scheme", pk, 3,
+            yield (f"k={k}, {scheme} scheme, {counter} counters", pk, 3,
                    torch.as_tensor(reads, device=device),
                    torch.as_tensor(lengths - k, device=device))
 
@@ -886,6 +1162,7 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
         err = int((sk.to(torch.int32) - sp.to(torch.int32)).abs().max())
         if not torch.equal(sk, sp):
             raise AssertionError(f"K2 solidity differs from plain at {tag}")
+        err_max = max(err_max, err)
         nk = L - k + 1
         existing = (torch.arange(nk, device=bases.device)[None, :]
                     <= last_j[:, None])
@@ -893,32 +1170,38 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
         if not 0 < n_solid < n_win:
             raise AssertionError(f"K2 test is degenerate at {tag}: "
                                  f"{n_solid} of {n_win} solid")
+        if real is None and k not in timed:
+            say(f"{phase} K2 {name} == plain at {tag}: {n_solid} of "
+                f"{n_win} windows solid at t={t}")
+            continue
         words, valid = extract_kmers(bases, k)
         canon, fwd = canonical_words(words, k)
         blk, lp = blocks_lanepack(pk, canon)
         mmers = _mmers(pk, valid & existing, fwd)
         live = (valid & existing).reshape(-1)
         lanes, sectors = _probe_traffic(tk, blk.reshape(-1), lp.reshape(-1),
-                                        live, d, t)
+                                        live, d, t, pk.counter)
         del words, valid, canon, fwd, blk, lp
         times = _timed(lambda: bloom_query_solid(tk, bases, last_j, pk, t),
                        lambda: bloom_query_solid_plain(tk, bases, last_j, pk,
                                                        t),
                        "bloom_query_solid_kernel")
         io_bytes = 4 * bases.numel() + 4 * B + B * nk
-        r = _record("bloom_query_solid", "kmerax_torch/csrc/bloom.cu",
-                    "kmerax/spectrum/pallas_bloom.py:190", err, times,
-                    io_bytes + 4 * lanes,
+        r = _record(name, "kmerax_torch/csrc/bloom.cu",
+                    "kmerax/spectrum/pallas_bloom.py:190" if counter == "i32"
+                    else "kmerax/spectrum/pallas_bloom.py:232", err, times,
+                    io_bytes + _COUNTER_BYTES[pk.counter] * lanes,
                     _kmer_ops(W, B * nk, int(live.sum()), lanes, mmers),
                     io_bytes + SECTOR * sectors, None, pk.bucket_scheme)
-        _say_times(f"{phase} K2 bloom_query_solid == plain at {tag}: "
+        _say_times(f"{phase} K2 {name} == plain at {tag}: "
                    f"{B} x {L} int32 batch, {n_win} windows in [0, last_j], "
                    f"{int(live.sum())} valid, {n_solid} solid at t={t}; "
                    f"{lanes} counter lanes read in {sectors} sectors; "
                    f"{mmers} (m-mer, strand) pairs mixed", r)
-        err_max = max(err_max, err)
         if rec is None or (k == 31 and real is None):
             rec = r
+    if rec is None:                   # no case timed
+        return {"max_abs_err": err_max}
     rec["max_abs_err"] = err_max
     return rec
 
@@ -942,7 +1225,7 @@ def _k3_traffic(pk, table, t, args):
         block, lp = blocks_lanepack(pk, cw)
         block, lp, vf = block.reshape(-1), lp.reshape(-1), v.reshape(-1)
         lanes, sectors = _probe_traffic(table, block, lp, vf, pk.num_hashes,
-                                        t)
+                                        t, pk.counter)
         tot[0] += int(vf.sum())
         tot[1] += lanes
         tot[2] += sectors
@@ -957,7 +1240,7 @@ def _k3_traffic(pk, table, t, args):
 
 
 def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
-              phase="phase2", scheme="hash"):
+              phase="phase2", scheme="hash", counter="i32", timed=None):
     """K3 == eval_scores_plain at k in ks on Q entries over a 4096 x 160
     batch whose k-mers `fill` inserted three times into the table `tk`:
     negative window starts (positions < k-1), padding entries (-1) and
@@ -969,7 +1252,11 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
     from kmerax_torch.ops.correct_kernels import correct_eval_scores, \
         eval_scores_plain
 
-    B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
+    B, L, d = K_READS, K_LEN, 4
+    LW = (tk.numel() * (2 if counter == "p16" else 1)).bit_length() - 1
+    timed = ks if timed is None else timed
+    name = "correct_eval_scores" if counter == "i32" \
+        else "correct_eval_scores_p16"
 
     def cases():
         if real is not None:          # first: `fill` overwrites the table
@@ -977,7 +1264,7 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
             yield (f"k={pk.k}, main-path call of {args[3].numel()} "
                    f"entries", pk, t_real, args)
         for k in ks:
-            pk = _params(k, scheme, LW)
+            pk = _params(k, scheme, LW, counter)
             reads, lengths = _reads(rng, B, L, k)
             fill(tk, pk, reads)
             bases = torch.as_tensor(reads, device=device)
@@ -988,8 +1275,8 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
             ent_i[:Q // 16] = -1
             ent_i[Q // 16:Q // 8] = rng.integers(0, k - 1, Q // 16)
             ent_i = torch.as_tensor(ent_i, device=device)
-            yield (f"k={k}, {scheme} scheme, {Q} entries", pk, 3,
-                   (bases, lens, lens - k, ent_r, ent_i))
+            yield (f"k={k}, {scheme} scheme, {counter} counters, {Q} "
+                   f"entries", pk, 3, (bases, lens, lens - k, ent_r, ent_i))
 
     rec = None
     err_max = 0
@@ -1004,6 +1291,11 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
             raise AssertionError(f"K3 scores differ from plain at {tag}")
         if int(sk.sum()) == 0:
             raise AssertionError(f"K3 test is degenerate at {tag}")
+        err_max = max(err_max, err)
+        if real is None and k not in timed:
+            say(f"{phase} K3 {name} == plain at {tag}: score sum "
+                f"{int(sk.sum())}")
+            continue
         Qc = args[3].numel()
         W = (k + 15) // 16
         n_kmers, lanes, sectors, mmers = _k3_traffic(pk, tk, t, args)
@@ -1012,20 +1304,22 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
         times = _timed(lambda: correct_eval_scores(pk, tk, t, *args),
                        lambda: eval_scores_plain(pk, tk, t, *args),
                        "correct_eval_scores_kernel", 5)
-        r = _record("correct_eval_scores", "kmerax_torch/csrc/correct.cu",
-                    "kmerax/ops/pallas_correct.py:74", err, times,
-                    io_bytes + 4 * lanes,
+        r = _record(name, "kmerax_torch/csrc/correct.cu",
+                    "kmerax/ops/pallas_correct.py:74" if counter == "i32"
+                    else "kmerax/ops/pallas_correct.py:266", err, times,
+                    io_bytes + _COUNTER_BYTES[pk.counter] * lanes,
                     _kmer_ops(W, n_kmers, n_kmers, lanes, mmers),
                     io_bytes + SECTOR * sectors, None, pk.bucket_scheme)
-        _say_times(f"{phase} K3 correct_eval_scores == plain at {tag}: "
+        _say_times(f"{phase} K3 {name} == plain at {tag}: "
                    f"score "
                    f"sum {int(sk.sum())}, {n_kmers} k-mers probed, {lanes} "
                    f"counter lanes read in {sectors} sectors; {mmers} "
                    f"(m-mer, strand) pairs mixed", r)
-        err_max = max(err_max, err)
         # the main-path call's record where there is one, else k=31's
         if rec is None or (k == 31 and real is None):
             rec = r
+    if rec is None:                   # no case timed
+        return {"max_abs_err": err_max}
     rec["max_abs_err"] = err_max
     return rec
 
@@ -2265,8 +2559,84 @@ def phase_bench(workdir: str, recs=None):
     for name in MAIN_PATH_KERNELS:
         if runs["config2_acceptance"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched by config 2")
+    runs.update(_config2_p16(workdir))
     _mesh_on_cuda()
     return runs
+
+
+def _kernel_name(full: str) -> str:
+    """A kernel's name and template arguments from the profiler's full
+    signature ("void (anonymous namespace)::name<...>(args)")."""
+    return full.split("(anonymous namespace)::")[-1].split("(")[0]
+
+
+def _config2_p16(workdir: str) -> dict:
+    """Config 2's reads (phase 7's acceptance run, kept in `_C2`) through
+    the CLI's staged subcommands on p16 counters, with the acceptance run's
+    config and `bloom_counter = "p16"` in a TOML: `count --config
+    c2_p16.toml --out spec` with KMERAX_TRACE_DIR set, then `correct
+    --spectrum spec`. The corrected FASTQs byte-equal to the i32 acceptance
+    run's, the checkpoint's bloom_table 2^(log2_width - 1) words, K1-K3
+    launched in their p16 form only, and the count stage's trace naming
+    K1's p16 kernel. Returns its launches (path "config2_p16_staged")."""
+    import glob
+    from kmerax_torch.pipeline.checkpoint import load_spectrum
+    from kmerax_torch.utils import cuda
+
+    cfg = dict(_C2["cfg"], bloom_counter="p16")
+    toml = os.path.join(workdir, "c2_p16.toml")
+    with open(toml, "w") as f:
+        f.writelines(f"{key} = {json.dumps(v)}\n" for key, v in cfg.items())
+    reads = [os.path.join(_C2["dir"], f"reads_{i}.fastq.gz") for i in (1, 2)]
+    want = [os.path.join(_C2["dir"], f"corrected_{i}.fastq") for i in (1, 2)]
+    outs = [os.path.join(workdir, f"p16_corrected_{i}.fastq") for i in (1, 2)]
+    spec = os.path.join(workdir, "c2_p16_spec")
+    trace = os.path.join(workdir, "trace")
+    cuda.reset_launches()
+    os.environ["KMERAX_TRACE_DIR"] = trace
+    try:
+        cnt, w_count = _cli("phase7", workdir, [
+            "count", "--in", *reads, "--out", spec, "--config", toml,
+            "--device", DEVICE])
+    finally:
+        del os.environ["KMERAX_TRACE_DIR"]
+    cor, w_correct = _cli("phase7", workdir, [
+        "correct", "--in", *reads, "--spectrum", spec, "--out", *outs,
+        "--config", toml, "--device", DEVICE])
+    launches = dict(cuda.LAUNCHES)
+    for got, ref in zip(outs, want):
+        _same_bytes(got, ref, "config 2 on p16 counters, staged, against "
+                              "the i32 acceptance run")
+    _, arrays = load_spectrum(spec)
+    n_words = len(arrays["bloom_table"])
+    if n_words != 1 << (cfg["bloom_log2_width"] - 1):
+        raise AssertionError(f"p16 checkpoint: bloom_table of {n_words} "
+                             f"words for 2^{cfg['bloom_log2_width']} "
+                             f"counters")
+    for name in MAIN_PATH_KERNELS:
+        if launches[name + "_p16"] <= 0 or launches[name] != 0:
+            raise AssertionError(f"config 2 on p16 counters: {name} "
+                                 f"launches {launches}")
+    files = glob.glob(os.path.join(trace, "count", "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"count trace: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [ev for ev in events if ev.get("cat") == "kernel"
+          and "bloom_insert_kernel" in ev.get("name", "")
+          and "CounterP16" in ev["name"]]
+    if len(k1) != launches["bloom_insert_p16"]:
+        raise AssertionError(f"count trace holds {len(k1)} K1 p16 kernels "
+                             f"for {launches['bloom_insert_p16']} launches")
+    num(f"phase7 config 2 on p16 counters (staged CLI, 2^"
+        f"{cfg['bloom_log2_width']} counters in {n_words} words, "
+        f"{n_words * 4} bytes): count {w_count:.2f} s (traced, "
+        f"KMERAX_TRACE_DIR; {cnt['kmers']} k-mers, threshold "
+        f"{cnt['threshold']}), correct --spectrum {w_correct:.2f} s "
+        f"({cor['edited_reads']} reads edited); FASTQs byte-equal to the "
+        f"i32 acceptance run's; launches {launches}; the count trace names "
+        f"{_kernel_name(k1[0]['name'])} {len(k1)} times")
+    return {"config2_p16_staged": launches}
 
 
 # phase 7's config-2 inputs, outputs and spectrum, kept for phase 8

@@ -209,8 +209,8 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
     string "full" for the real dataset size (config 1 = the 4.6 Mb E. coli
     genome, ~1.5 M PE150 reads at 50x).
     overrides: KmeraxConfig field overrides (a mesh among them runs as
-    given); one that selects a path the port does not have (p16 counters)
-    raises "not yet ported".
+    given; p16 counters run on one device and raise on a mesh, "sharded
+    spectra keep i32 counters").
     """
     from kmerax_torch.dist.mesh import MeshSpec, launch
 
@@ -235,7 +235,6 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
     if overrides:
         cfg = cfg.replace(**overrides)
         mesh_d, mesh_b = cfg.mesh_data, cfg.mesh_bucket
-    cfg.require_ported()
     out_fastq = [os.path.join(workdir, f"corrected_{i+1}.fastq")
                  for i in range(len(paths))]
     out_fasta = os.path.join(workdir, "contigs.fasta") if spec.assemble \

@@ -34,7 +34,11 @@ align their own input shards. `align` then runs on every host too.
 
 A spectrum directory from `count` is the JAX package's checkpoint format
 (a range-sharded one writes a shard per host); either package reads the
-other's.
+other's. `bloom_counter = "p16"` in the `--config` TOML counts into p16
+counters (two saturating 16-bit counters a word) on one device; `correct
+--spectrum` and `assemble --spectrum` read the table's layout from its
+length. KMERAX_TRACE_DIR=DIR writes a torch.profiler trace of the count,
+correct and align stages under DIR/<stage>/ (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -197,7 +201,6 @@ def main(argv=None) -> int:
     from kmerax_torch.dist import mesh as dmesh
 
     cfg = _cfg(args)
-    cfg.require_ported()
     spec = dmesh.MeshSpec(cfg.mesh_data, cfg.mesh_bucket)
     coordinator, n_hosts, host = _hosts(args)
     if (spec.ndev > 1 and args.cmd in _MESH_CMDS) or (

@@ -1,10 +1,7 @@
 """Run configuration: the same frozen dataclass as the JAX package's
 `kmerax/config.py` (same fields, defaults and validation), so a config
-serialized by one package loads in the other.
-
-The port honours a subset of the fields (see `unported_fields`); the rest
-exist so configs round-trip, and selecting them raises "not yet ported" at
-the entry point instead of being silently ignored.
+serialized by one package loads in the other, and the port honours every
+field.
 """
 
 from __future__ import annotations
@@ -27,8 +24,10 @@ class KmeraxConfig:
     # counting Bloom spectrum (DESIGN.md §5)
     bloom_log2_width: int = 24
     bloom_hashes: int = 4
-    # counter storage: "auto" resolves to "i32" in the port (p16 exists only
-    # to keep tables VMEM-resident on a TPU)
+    # counter storage: "i32", or "p16" (two saturating 16-bit counters a
+    # word, half the table bytes); "auto" resolves to "i32" in the port, as
+    # in the JAX package off a TPU (its p16 keeps tables VMEM-resident).
+    # Sharded spectra (a mesh) keep i32 counters.
     bloom_counter: str = "auto"
 
     # exact spectrum (DESIGN.md §6): needed for auto-threshold + assembly
@@ -117,16 +116,3 @@ class KmeraxConfig:
             fields.update(data)
         fields.update({k: v for k, v in overrides.items() if v is not None})
         return cls(**fields)
-
-    def unported_fields(self) -> list[str]:
-        """Settings that select a path the port does not have yet."""
-        out = []
-        if self.bloom_counter == "p16":
-            out.append("bloom_counter='p16'")
-        return out
-
-    def require_ported(self) -> None:
-        bad = self.unported_fields()
-        if bad:
-            raise NotImplementedError(
-                "not yet ported to kmerax_torch: " + ", ".join(bad))

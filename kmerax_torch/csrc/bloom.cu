@@ -11,6 +11,13 @@
 // as the correct round calls it, kmerax/ops/correct.py::_window_counts:
 // it takes the round's (B, L) int32 read batch and last_j and returns the
 // solidity of every window, with the addressing done in the kernel.
+// Both take the counter layout as a template parameter (kmerax.cuh): i32,
+// or p16, the Pallas kernels' `packed16` branches (pallas_bloom.py:97-103,
+// a saturating halfword add; :232-235, the halfword read), two 16-bit
+// counters a word, so the table is half the bytes. K1's p16 add is a CAS
+// loop a counter, after the warp's lanes that hit one counter are grouped
+// (CounterP16::add, with the argument for its result); K2's p16 probe
+// reads the halfword.
 //
 // Addressing (DESIGN.md §5): every k-mer owns one 128-counter block row of
 // the int32 table and d <= 4 lanes in it, 7 bits each of its second hash.
@@ -75,6 +82,11 @@
 // same rows sorted by block, or grouped by 256 or 512 MiB region, took
 // 0.82-0.90 of the routed order's time (chip_smoke._k1r_orders, NVIDIA
 // H100 80GB HBM3 at 700 W), so the rows are not binned.
+// p16 halves the table and keeps the sectors a k-mer touches (its d lanes
+// still lie in one 512-byte word row), so its floor is K1's and K2's
+// above; at the CLI's 2^24 counters a p16 table (32 MiB) fits the L2 and
+// an i32 one (64 MiB) does not. K1's p16 add reads the word before its
+// CAS: two trips to the L2 a lane where the i32 RED takes one.
 
 #include "kmerax.cuh"
 
@@ -100,7 +112,7 @@ static __device__ __forceinline__ void pack_read(uint32_t* P, uint32_t* N,
     __syncwarp();
 }
 
-template <int W, bool kMinimizer>
+template <int W, bool kMinimizer, typename Counter>
 __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
                                     const int8_t* __restrict__ bases, int B,
                                     int L, int k, uint32_t block_mask, int d,
@@ -125,18 +137,22 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
             const bool in = j < nk;
             const bool ok = in && kmerax_span_clear(N, j, k);
             uint32_t words[W];
+            uint32_t block = 0, h2 = 0;
             if (ok) {
                 kmerax_window_words<W>(P, j, k, words);
                 kmerax_canonicalize(words, W, k);
                 const uint32_t h1 = kmerax_kmer_hash(words, W,
                                                      KMERAX_HASH_SEED_1);
-                const uint32_t h2 = kmerax_kmer_hash(words, W,
-                                                     KMERAX_HASH_SEED_2);
-                int32_t* trow = table + (size_t)kmerax_block<W, kMinimizer>(
-                    words, k, h1, block_mask, m, log2_buckets) * 128;
-                for (int i = 0; i < d; ++i)
-                    atomicAdd(trow + ((h2 >> (7 * i)) & 127u), 1);
+                h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
+                block = kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
+                                                    m, log2_buckets);
+                if constexpr (!Counter::kWarpAdd)
+                    Counter::add(table, block, h2, d);
             }
+            // the p16 add is the warp's: every lane calls it (the loop
+            // bounds are warp-uniform)
+            if constexpr (Counter::kWarpAdd)
+                Counter::add(table, block, h2, d, ok);
             if (pending != nullptr && in) {
                 uint32_t* out = pending + (off + r * nk + j) * W;
 #pragma unroll
@@ -153,7 +169,7 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
         atomicAdd(n_valid, (unsigned long long)block_valid);
 }
 
-template <int W, bool kMinimizer>
+template <int W, bool kMinimizer, typename Counter>
 __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
                                          const int32_t* __restrict__ bases,
                                          int B, int L, int k,
@@ -181,7 +197,7 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
             kmerax_canonicalize(words, W, k);
             const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
             const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = kmerax_probe_two_rounds(
+            solid = Counter::solid(
                 table, kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
                                                    m, log2_buckets),
                 h2, d, t);
@@ -330,9 +346,10 @@ cudaError_t smem_bytes(int L, size_t* smem) {
 
 }  // namespace
 
+// p16 != 0: the table is p16 words (CounterP16), else int32 counters
 extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
                                    int B, int L, int k, uint32_t block_mask,
-                                   int d, int m, int log2_buckets,
+                                   int d, int m, int log2_buckets, int p16,
                                    int32_t* pending, int64_t off,
                                    int64_t* n_valid, cudaStream_t stream) {
     if (B <= 0) return (int)cudaGetLastError();
@@ -341,8 +358,10 @@ extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
     uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
     auto* nv = reinterpret_cast<unsigned long long*>(n_valid);
     const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
-    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
-        bloom_insert_kernel<decltype(w)::value, decltype(mz)::value>
+    return (int)kmerax_dispatch_layout(k, m, p16, [&](auto w, auto mz,
+                                                      auto layout) {
+        bloom_insert_kernel<decltype(w)::value, decltype(mz)::value,
+                            decltype(layout)>
             <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k,
                                                block_mask, d, m, log2_buckets,
                                                pend, off, nv);
@@ -354,14 +373,16 @@ extern "C" int kmerax_bloom_query_solid(const int32_t* table,
                                         const int32_t* bases, int B, int L,
                                         int k, const int32_t* last_j,
                                         uint32_t block_mask, int d, int m,
-                                        int log2_buckets, int t, uint8_t* out,
-                                        cudaStream_t stream) {
+                                        int log2_buckets, int p16, int t,
+                                        uint8_t* out, cudaStream_t stream) {
     if (B <= 0) return (int)cudaGetLastError();
     size_t smem;
     if (smem_bytes(L, &smem) != cudaSuccess) return (int)cudaErrorInvalidValue;
     const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
-    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
-        bloom_query_solid_kernel<decltype(w)::value, decltype(mz)::value>
+    return (int)kmerax_dispatch_layout(k, m, p16, [&](auto w, auto mz,
+                                                      auto layout) {
+        bloom_query_solid_kernel<decltype(w)::value, decltype(mz)::value,
+                                 decltype(layout)>
             <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k, last_j,
                                                block_mask, d, m, log2_buckets,
                                                t, out);

@@ -12,7 +12,9 @@
 // scores[q][v] counts the solid (v, j) k-mers. The block row comes from
 // kmerax_block under either bucket scheme (a template parameter), as in K1
 // and K2; the TPU kernel's hash-scheme-only restriction is an artifact of
-// its layout and does not carry over. Positions outside
+// its layout and does not carry over. The counter layout is a template
+// parameter too (kmerax.cuh): i32, or p16, the halfword probe the Pallas
+// kernel takes with its packed16 flag (pallas_correct.py:266-269). Positions outside
 // [0, length) read as base 4 (invalid); the center is always valid; window
 // j counts only when its start lies in [0, last_j] of the read.
 //
@@ -47,7 +49,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSpanChunks = 4;           // 2k-1 <= 125 bases: 4 chunks of 32
 
 // WPV warps per (entry, variant): 1 for k <= 32, 2 for k <= 63
-template <int W, int WPV, bool kMinimizer>
+template <int W, int WPV, bool kMinimizer, typename Counter>
 __global__ void correct_eval_scores_kernel(
     const int32_t* __restrict__ bases, int L,
     const int32_t* __restrict__ lengths, const int32_t* __restrict__ last_j,
@@ -104,7 +106,7 @@ __global__ void correct_eval_scores_kernel(
             kmerax_canonicalize(words, W, k);
             const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
             const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = kmerax_probe_two_rounds(
+            solid = Counter::solid(
                 table, kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
                                                    m, log2_buckets),
                 h2, d, t);
@@ -132,13 +134,16 @@ extern "C" int kmerax_correct_eval_scores(
     const int32_t* bases, int L, const int32_t* lengths,
     const int32_t* last_j, const int32_t* ent_r, const int32_t* ent_i,
     int64_t Q, const int32_t* table, uint32_t block_mask, int d, int m,
-    int log2_buckets, int t, int k, int32_t* scores, cudaStream_t stream) {
+    int log2_buckets, int p16, int t, int k, int32_t* scores,
+    cudaStream_t stream) {
     if (Q <= 0) return (int)cudaGetLastError();
-    return (int)kmerax_dispatch(k, m, [&](auto w, auto mz) {
+    return (int)kmerax_dispatch_layout(k, m, p16, [&](auto w, auto mz,
+                                                      auto layout) {
         constexpr int W = decltype(w)::value;
         constexpr int WPV = W <= 2 ? 1 : 2;
         constexpr int kEntries = kWarps / (4 * WPV);
-        correct_eval_scores_kernel<W, WPV, decltype(mz)::value>
+        correct_eval_scores_kernel<W, WPV, decltype(mz)::value,
+                                   decltype(layout)>
             <<<(unsigned)((Q + kEntries - 1) / kEntries), kThreads, 0,
                stream>>>(bases, L, lengths, last_j, ent_r, ent_i, Q, table,
                          block_mask, d, m, log2_buckets, t, k, scores);

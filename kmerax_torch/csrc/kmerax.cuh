@@ -1,8 +1,9 @@
 // Shared device helpers of the port's kernels: the 2-bit codec, the
 // canonical form and the murmur3 probe hash over native uint32 words, the
-// block row under either bucket scheme, the two-round solidity probe of K2
-// and K3, the packed-window layout K1-K3 build their k-mers from, and the
-// host dispatch over the word count and the scheme.
+// block row under either bucket scheme, the counter layouts (the insert of
+// K1 and the two-round solidity probe of K2 and K3, on i32 or p16
+// counters), the packed-window layout K1-K3 build their k-mers from, and
+// the host dispatch over the word count, the scheme and the layout.
 // Bit-exact with kmerax_torch/core/{codec,hash,kmers,minimizer}.py
 // (DESIGN.md §§2-5).
 #pragma once
@@ -128,6 +129,131 @@ static __device__ __forceinline__ bool kmerax_probe_two_rounds(
     for (int i = 1; i < 4; ++i)
         if (i < d) solid &= __ldg(row + ((h2 >> (7 * i)) & 127u)) >= t;
     return solid;
+}
+
+// ---- counter layouts (K1, K2, K3) ----------------------------------------
+//
+// A kernel takes its layout as a template parameter, one of these two
+// types, so each layout is an instantiation of its own (its name in a
+// profile ends in CounterI32 or CounterP16) and the i32 one holds no p16
+// code. block is a 128-counter block row, h2 the second hash whose bits
+// 7i..7i+6 are lane i.
+
+// one int32 counter a lane: the table is (nrows * 128,) int32
+struct CounterI32 {
+    static constexpr bool kWarpAdd = false;   // add() a lane at a time
+    // +1 at each of the d lanes (+2 for a repeated lane): one RED each
+    static __device__ __forceinline__ void add(int32_t* table,
+                                               uint32_t block, uint32_t h2,
+                                               int d) {
+        int32_t* row = table + (size_t)block * 128;
+        for (int i = 0; i < d; ++i)
+            atomicAdd(row + ((h2 >> (7 * i)) & 127u), 1);
+    }
+    static __device__ __forceinline__ bool solid(const int32_t* table,
+                                                 uint32_t block, uint32_t h2,
+                                                 int d, int t) {
+        return kmerax_probe_two_rounds(table, block, h2, d, t);
+    }
+};
+
+#define KMERAX_SAT16 0x7FFFu        // p16 counter saturation ceiling
+
+// p16, the JAX package's pack16 layout (kmerax/spectrum/bloom.py:72-85):
+// two saturating 16-bit counters a word; block b lives at word row b >> 1,
+// halfword b & 1, so the table is (nrows * 64,) int32 words. Every half
+// holds a value in [0, SAT16], so every word is in [0, 0x7FFF7FFF].
+struct CounterP16 {
+    static constexpr bool kWarpAdd = true;    // add() by the whole warp
+    // Insert, called by all 32 lanes of a warp, `live` where the lane has a
+    // k-mer: probe by probe, the lanes whose probe i hits the same counter
+    // (word and half; __match_any_sync) form a group, and its first lane
+    // raises that half from h to min(h + c, SAT16), c the group's size, by
+    // a CAS loop on the word: from the word read before (the d probes'
+    // reads are issued together, __ldcg: from the L2, never a stale L1
+    // line), stop if the half is at SAT16, else CAS the word to itself
+    // with that half raised; on failure retry from the word the CAS
+    // returned.
+    // Why the result is min(initial + n, SAT16) for n adds, whatever the
+    // order: the successful CASes on a word are totally ordered, and each
+    // one replaced exactly the word it read, so by induction each half
+    // holds min(initial + adds applied so far, SAT16) after every success
+    // (the other half is written back unchanged, and no half ever leaves
+    // [0, SAT16], so nothing carries from one half into the other); a
+    // group that finds its half at SAT16 may stop, since a counter never
+    // falls. This is the saturating sum `insert` computes a batch
+    // (bloom.py:143-156, min(sum, SAT16)), and min(min(a + n1, S) + n2, S)
+    // = min(a + n1 + n2, S), so batch splits and orders agree too.
+    // Why not an atomicAdd of 1 << 16(b & 1), undone by an atomicSub where
+    // the old half was already at SAT16: that is exact only while fewer
+    // than 32,769 adds to one half are applied and not yet undone, else the
+    // half wraps (the low one into the high one). When one k-mer fills a
+    // batch (a poly-A read: every window, every read) the adds queue at one
+    // L2 address by the hundred thousand, ahead of the undos, and nothing
+    // bounds that. The CAS loop needs no bound. Its cost is contention: a
+    // CAS succeeds once a round among the writers of one word, so the
+    // groups fold a warp's equal counters (a low-complexity read's) into
+    // one CAS, and a saturated counter takes no atomic at all.
+    static __device__ __forceinline__ void add(int32_t* table,
+                                               uint32_t block, uint32_t h2,
+                                               int d, bool live) {
+        unsigned int* row = reinterpret_cast<unsigned int*>(table)
+                            + (size_t)(block >> 1) * 128;
+        const int sh = 16 * (int)(block & 1u);
+        const int me = threadIdx.x & 31;
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            if (live && i < d) w[i] = __ldcg(row + ((h2 >> (7 * i)) & 127u));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const uint32_t lane = (h2 >> (7 * i)) & 127u;
+            const bool on = live && i < d;
+            // word index << 1 | half: < 2^31 for 2^31 counters
+            const uint32_t key = on ? (((block >> 1) << 8) | (lane << 1)
+                                       | (block & 1u))
+                                    : KMERAX_FULL_MASK;
+            const unsigned peers = __match_any_sync(KMERAX_FULL_MASK, key);
+            if (!on || __ffs(peers) - 1 != me) continue;
+            const uint32_t c = __popc(peers);
+            uint32_t old = w[i];
+            for (;;) {
+                const uint32_t h = (old >> sh) & 0xFFFFu;
+                if (h >= KMERAX_SAT16) break;
+                const uint32_t nh = min(h + c, KMERAX_SAT16);
+                const uint32_t prev = atomicCAS(row + lane, old,
+                                                old + ((nh - h) << sh));
+                if (prev == old) break;
+                old = prev;
+            }
+        }
+    }
+    // the two-round probe of kmerax_probe_two_rounds on the halfwords
+    static __device__ __forceinline__ bool solid(const int32_t* table,
+                                                 uint32_t block, uint32_t h2,
+                                                 int d, int t) {
+        const int32_t* row = table + (size_t)(block >> 1) * 128;
+        const int sh = 16 * (int)(block & 1u);
+        auto half = [&](uint32_t lane) {
+            return (int)(((uint32_t)__ldg(row + lane) >> sh) & 0xFFFFu);
+        };
+        if (half(h2 & 127u) < t) return false;
+        bool ok = true;
+#pragma unroll
+        for (int i = 1; i < 4; ++i)
+            if (i < d) ok &= half((h2 >> (7 * i)) & 127u) >= t;
+        return ok;
+    }
+};
+
+// host side: f(std::integral_constant<int, W>, std::bool_constant<kMinimizer>,
+// CounterI32 or CounterP16) for W = ceil(k/16), the scheme (m > 0) and the
+// layout (p16 != 0)
+template <typename F>
+static cudaError_t kmerax_dispatch_layout(int k, int m, int p16, F&& f) {
+    return kmerax_dispatch(k, m, [&](auto w, auto mz) {
+        return p16 ? f(w, mz, CounterP16{}) : f(w, mz, CounterI32{});
+    });
 }
 
 // ---- packed windows (K1, K2, K3) -----------------------------------------

@@ -5,7 +5,10 @@ ops/correct.py::correct_batch (K2's window solidity, K3's scoring).
 K3 replaces kmerax/ops/pallas_correct.py::_prep_kernel with the solidity
 probe (pallas_bloom.py::_query_kernel) fused in (source: csrc/correct.cu).
 It returns the per-entry variant scores (Q, 4); the accept rule stays in
-torch (ops/correct.py::_accept), as in the JAX package.
+torch (ops/correct.py::_accept), as in the JAX package. It probes the table
+in either counter layout of BloomParams; the p16 form (the halfword probe
+of pallas_correct.py:266-269) is a kernel of its own, counted as
+"correct_eval_scores_p16".
 
 Dispatch: a CPU table takes the plain version; a CUDA table launches the
 kernel or raises — there is no fallback.
@@ -18,7 +21,7 @@ import torch
 from kmerax_torch.ops.correct import _accept, _eval_scores
 from kmerax_torch.spectrum.bloom import BloomParams, query_solid
 from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid, \
-    scheme_args
+    counter_name, scheme_args
 from kmerax_torch.utils import cuda
 
 
@@ -35,11 +38,12 @@ def correct_eval_scores(params: BloomParams, table: torch.Tensor, t: int,
                         last_j: torch.Tensor, ent_r: torch.Tensor,
                         ent_i: torch.Tensor) -> torch.Tensor:
     """K3: scores (Q, 4) int32 for entries (ent_r, ent_i) of the (B, L)
-    int32 read batch against the int32 counter table at threshold t."""
+    int32 read batch against the counter table (in the params' layout) at
+    threshold t."""
     dev = table.device
     B, L = bases.shape
     Q = ent_r.shape[0]
-    cuda.require(table, "table", torch.int32, dev, (params.width,))
+    cuda.require(table, "table", torch.int32, dev, (params.table_entries,))
     cuda.require(bases, "bases", torch.int32, dev, (B, L))
     cuda.require(lengths, "lengths", torch.int32, dev, (B,))
     cuda.require(last_j, "last_j", torch.int32, dev, (B,))
@@ -53,10 +57,11 @@ def correct_eval_scores(params: BloomParams, table: torch.Tensor, t: int,
         bases.data_ptr(), L, lengths.data_ptr(), last_j.data_ptr(),
         ent_r.data_ptr(), ent_i.data_ptr(), Q, table.data_ptr(),
         (1 << (params.log2_width - 7)) - 1, params.num_hashes,
-        *scheme_args(params), int(t), params.k, scores.data_ptr(),
-        cuda.stream())
-    cuda.LAUNCHES["correct_eval_scores"] += 1
-    cuda.check(rc, "correct_eval_scores")
+        *scheme_args(params), int(params.counter == "p16"), int(t),
+        params.k, scores.data_ptr(), cuda.stream())
+    name = counter_name("correct_eval_scores", params)
+    cuda.LAUNCHES[name] += 1
+    cuda.check(rc, name)
     return scores
 
 

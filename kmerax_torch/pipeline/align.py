@@ -27,6 +27,7 @@ from kmerax_torch.pipeline.count import to_device_batch
 from kmerax_torch.utils.cuda import resolve_device
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
+from kmerax_torch.utils.tracing import maybe_trace
 
 log = get_logger("kmerax_torch.pipeline")
 
@@ -88,26 +89,29 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
         index_s = time.perf_counter() - t0
         index_kmers = int(len(uniq))
         table_bytes = index.tab.numel() * index.tab.element_size()
-    for gpaths, tpath in units:
-        with open(tpath, "w") if tpath else contextlib.nullcontext() as tsv:
-            for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
-                                           cfg.max_read_len):
-                bases, lengths, _ = to_device_batch(batch, device)
-                found, strand, pos, score = (
-                    x[:batch.n].cpu().numpy() for x in
-                    validate_batch(cat_dev, index, bases, lengths, k, band))
-                lens = batch.lengths[:batch.n]
-                ident = np.where(found & (lens > 0),
-                                 score / (2.0 * np.maximum(lens, 1)), 0.0)
-                n_reads += batch.n
-                n_aligned += int(found.sum())
-                sum_ident += float(ident[found].sum())
-                if tsv is not None:
-                    tsv.write("".join(
-                        f"{batch.records[i].name.decode()}\t"
-                        f"{int(found[i])}\t{int(strand[i])}\t"
-                        f"{int(pos[i])}\t{int(score[i])}\t"
-                        f"{ident[i]:.4f}\n" for i in range(batch.n)))
+    with maybe_trace("align", device):
+        for gpaths, tpath in units:
+            with (open(tpath, "w") if tpath
+                  else contextlib.nullcontext()) as tsv:
+                for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
+                                               cfg.max_read_len):
+                    bases, lengths, _ = to_device_batch(batch, device)
+                    found, strand, pos, score = (
+                        x[:batch.n].cpu().numpy() for x in
+                        validate_batch(cat_dev, index, bases, lengths, k,
+                                       band))
+                    lens = batch.lengths[:batch.n]
+                    ident = np.where(found & (lens > 0),
+                                     score / (2.0 * np.maximum(lens, 1)), 0.0)
+                    n_reads += batch.n
+                    n_aligned += int(found.sum())
+                    sum_ident += float(ident[found].sum())
+                    if tsv is not None:
+                        tsv.write("".join(
+                            f"{batch.records[i].name.decode()}\t"
+                            f"{int(found[i])}\t{int(strand[i])}\t"
+                            f"{int(pos[i])}\t{int(score[i])}\t"
+                            f"{ident[i]:.4f}\n" for i in range(batch.n)))
     if per_host:
         dmesh.host_barrier("align_parts")
         # int64 sums; the identities ride as micro-identity integers

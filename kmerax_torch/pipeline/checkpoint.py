@@ -29,7 +29,7 @@ import torch
 
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.dist import mesh as dmesh
-from kmerax_torch.pipeline.count import CountState
+from kmerax_torch.pipeline.count import CountState, table_counter
 from kmerax_torch.spectrum.host import HostSpectrum
 from kmerax_torch.spectrum.host_sharded import ShardedHostSpectrum
 
@@ -136,7 +136,11 @@ def state_from_checkpoint(cfg: KmeraxConfig, manifest: dict, arrays: dict,
     the JAX package's two-pass resume does (a `host_shard` manifest's as
     this host's ShardedHostSpectrum); its CLI's `_load_or_count` does not,
     so there a host-form checkpoint gives a state without a spectrum
-    (correct still works; assemble raises)."""
+    (correct still works; assemble raises). The table's counter layout
+    comes from its length (pipeline/count.py::table_counter): the packed
+    (width/2,) p16 words, as the JAX package saves them, are p16 even under
+    "auto"; a length that is neither, or one that contradicts an explicit
+    `bloom_counter`, raises."""
     host, cap = None, None
     if "exact_uniq" in arrays:
         n = int(arrays["exact_n"])
@@ -152,7 +156,8 @@ def state_from_checkpoint(cfg: KmeraxConfig, manifest: dict, arrays: dict,
             host = ShardedHostSpectrum(
                 host, cfg.k, n_procs, pid,
                 arrays.get("host_bounds", np.zeros(0, np.uint64)))
+    counter = table_counter(cfg, len(arrays["bloom_table"]))
     table = torch.from_numpy(arrays["bloom_table"]).to(device)
     return CountState(cfg, table, arrays.get("hist"), manifest["threshold"],
                       manifest.get("n_reads", 0), manifest.get("n_kmers", 0),
-                      host=host, exact_cap=cap)
+                      host=host, exact_cap=cap, counter=counter)

@@ -1,9 +1,10 @@
 """Correct stage (port of kmerax/pipeline/run.py::make_correct_step and
 run_correct, single process).
 
-Each batch runs ops/correct.py::correct_batch against the count table: the
-round-start solidity through kernel K2 and the candidate scoring through
-kernel K3 on the card (their plain versions on the CPU). With
+Each batch runs ops/correct.py::correct_batch against the count table, in
+the counter layout it was counted in (`CountState.counter`, i32 or p16):
+the round-start solidity through kernel K2 and the candidate scoring
+through kernel K3 on the card (their plain versions on the CPU). With
 `cfg.wire_pack`, an N-free batch crosses on the 2-bit wire both ways
 (io/wire.py): unpacked on the device before the step, its corrected rows
 packed there and unpacked on the host. Corrected reads are written with
@@ -52,6 +53,7 @@ from kmerax_torch.pipeline.count import CountState, bloom_params, \
 from kmerax_torch.spectrum.exact import lookup_sorted
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
+from kmerax_torch.utils.tracing import maybe_trace
 
 log = get_logger("kmerax_torch.pipeline")
 
@@ -122,7 +124,7 @@ def make_routed_step(params, sp, table_shard, t, mesh, *, rounds,
 def _mesh_step(cfg: KmeraxConfig, state: CountState, mesh, kw):
     """The mesh correct step's spectrum path (see the module docstring)."""
     global LAST_CORRECT_PATH
-    params = bloom_params(cfg, cfg.k)
+    params = bloom_params(cfg, cfg.k, state.counter)
     t = state.threshold
     if state.bloom_table is not None:
         LAST_CORRECT_PATH = "fused"
@@ -215,13 +217,13 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
         rows = mesh.local_row_slice(cfg.batch_reads)
         group = mesh.local_group
         writer = mesh.is_leader
-        step = make_correct_step(bloom_params(cfg, cfg.k),
+        step = make_correct_step(bloom_params(cfg, cfg.k, state.counter),
                                  state.bloom_table.to(device),
                                  state.threshold, **kw)
     elif mesh is not None:
         step = _mesh_step(cfg, state, mesh, kw)
     else:
-        step = make_correct_step(bloom_params(cfg, cfg.k),
+        step = make_correct_step(bloom_params(cfg, cfg.k, state.counter),
                                  state.bloom_table.to(device),
                                  state.threshold, **kw)
     # the 2-bit wire where the rows are read back locally: one process,
@@ -231,51 +233,52 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
 
     n_reads = n_edited = n_edits = 0
     m.stage_start("correct")
-    for gpaths, gout in units:
-        with (FastqWriter(gout) if writer
-              else contextlib.nullcontext()) as out:
-            def flush(pend):
-                """Read back + write one completed batch."""
-                nonlocal n_reads, n_edited, n_edits
-                batch, fixed, ne, packed = pend
-                fixed, ne = fixed.cpu().numpy(), ne.cpu().numpy()
-                if packed:
-                    fixed = wire.unpack2_host(fixed, cfg.max_read_len)
-                if out is not None:
-                    for i in range(batch.n):
-                        out.write_record(batch.records[i],
-                                         fixed[i, :batch.lengths[i]])
-                n_reads += batch.n
-                n_edited += int((ne[:batch.n] > 0).sum())
-                n_edits += int(ne[:batch.n].sum())
+    with maybe_trace("correct", device):
+        for gpaths, gout in units:
+            with (FastqWriter(gout) if writer
+                  else contextlib.nullcontext()) as out:
+                def flush(pend):
+                    """Read back + write one completed batch."""
+                    nonlocal n_reads, n_edited, n_edits
+                    batch, fixed, ne, packed = pend
+                    fixed, ne = fixed.cpu().numpy(), ne.cpu().numpy()
+                    if packed:
+                        fixed = wire.unpack2_host(fixed, cfg.max_read_len)
+                    if out is not None:
+                        for i in range(batch.n):
+                            out.write_record(batch.records[i],
+                                             fixed[i, :batch.lengths[i]])
+                    n_reads += batch.n
+                    n_edited += int((ne[:batch.n] > 0).sum())
+                    n_edits += int(ne[:batch.n].sum())
 
-            # one-deep software pipeline: batch i's read-back + write
-            # follow batch i+1's launch, so the host write overlaps the
-            # device's tail of work on the next batch
-            pend = None
-            for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
-                                           cfg.max_read_len):
-                if mesh is None:
-                    bases, lengths, packed = to_device_batch(
-                        batch, device, use_pack)
-                else:
-                    # this rank's rows, on the wire the whole batch takes
-                    pack = use_pack and not wire.batch_has_n(
-                        batch.bases, batch.lengths)
-                    bases, lengths, packed = to_device_batch(
-                        ReadBatch(batch.bases[rows], batch.lengths[rows],
-                                  0, []), device, pack)
-                fixed, ne = step(bases, lengths)
-                if packed:          # the D2H leg on the 2-bit wire too
-                    fixed = wire.pack2_dev(fixed)
-                if mesh is not None:
-                    fixed = mesh.all_gather_rows(fixed, group)
-                    ne = mesh.all_gather_rows(ne, group)
+                # one-deep software pipeline: batch i's read-back + write
+                # follow batch i+1's launch, so the host write overlaps the
+                # device's tail of work on the next batch
+                pend = None
+                for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
+                                               cfg.max_read_len):
+                    if mesh is None:
+                        bases, lengths, packed = to_device_batch(
+                            batch, device, use_pack)
+                    else:
+                        # this rank's rows, on the wire the whole batch takes
+                        pack = use_pack and not wire.batch_has_n(
+                            batch.bases, batch.lengths)
+                        bases, lengths, packed = to_device_batch(
+                            ReadBatch(batch.bases[rows], batch.lengths[rows],
+                                      0, []), device, pack)
+                    fixed, ne = step(bases, lengths)
+                    if packed:          # the D2H leg on the 2-bit wire too
+                        fixed = wire.pack2_dev(fixed)
+                    if mesh is not None:
+                        fixed = mesh.all_gather_rows(fixed, group)
+                        ne = mesh.all_gather_rows(ne, group)
+                    if pend is not None:
+                        flush(pend)
+                    pend = (batch, fixed, ne, packed)
                 if pend is not None:
                     flush(pend)
-                pend = (batch, fixed, ne, packed)
-            if pend is not None:
-                flush(pend)
     if mesh is not None and mesh.n_hosts > 1:
         # the next stage reads the corrected FASTQ on every host: wait
         # until every writer is done

@@ -46,6 +46,7 @@ from kmerax_torch.spectrum.histogram import solid_threshold
 from kmerax_torch.spectrum.host import HostSpectrum
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
+from kmerax_torch.utils.tracing import maybe_trace
 
 log = get_logger("kmerax_torch.pipeline")
 
@@ -67,8 +68,9 @@ LAST_COUNT_FLUSHES = 0
 @dataclass
 class CountState:
     cfg: KmeraxConfig
-    # (2^log2_width,) int32 on the device; None after a mesh count whose
-    # table is past REPLICATE_TABLE_BUDGET
+    # (2^log2_width,) int32 counters, or (2^log2_width / 2,) p16 words
+    # (`counter`), on the device; None after a mesh count whose table is
+    # past REPLICATE_TABLE_BUDGET
     bloom_table: Optional[torch.Tensor]
     hist: Optional[np.ndarray]
     threshold: int
@@ -82,6 +84,9 @@ class CountState:
     # this rank's merged (width/S,) slice after a mesh count: the routed
     # correction's spectrum for tables too large to replicate
     sharded_table: Optional[torch.Tensor] = None
+    # the table's counter layout, "i32" or "p16": the count's own, or the
+    # one a checkpoint's table length gives (`table_counter`)
+    counter: str = "i32"
 
     def exact(self, device):
         """(uniq (cap, W) int64 words, counts (cap,) int32, n) on `device`,
@@ -91,13 +96,36 @@ class CountState:
         return self.host.to_device(self.exact_cap, device)
 
 
-def bloom_params(cfg: KmeraxConfig, k: int) -> BloomParams:
-    """The port's Bloom parameters: i32 counters ("auto" resolves to i32,
-    as the JAX package does off a TPU) and the config's bucket scheme."""
-    cfg.require_ported()
+def bloom_params(cfg: KmeraxConfig, k: int,
+                 counter: Optional[str] = None) -> BloomParams:
+    """The port's Bloom parameters: the config's bucket scheme and counter
+    layout ("auto" resolves to i32, as the JAX package does off a TPU), or
+    `counter` where given (a count state's, `CountState.counter`)."""
+    if counter is None:
+        counter = "i32" if cfg.bloom_counter == "auto" else cfg.bloom_counter
     return BloomParams(k, cfg.bloom_log2_width, cfg.bloom_hashes,
                        cfg.minimizer_m, (cfg.num_buckets - 1).bit_length(),
-                       cfg.bucket_scheme)
+                       cfg.bucket_scheme, counter)
+
+
+def table_counter(cfg: KmeraxConfig, n_words: int) -> str:
+    """The counter layout of a saved (n_words,) Bloom table counted under
+    `cfg`: 2^bloom_log2_width words are i32 counters, half as many are p16
+    words, even under "auto" (a TPU run resolves "auto" to p16 at 2^25
+    counters and saves the packed table). A length that is neither, or a
+    layout the config names explicitly and the table is not, raises."""
+    width = 1 << cfg.bloom_log2_width
+    layout = {width: "i32", width // 2: "p16"}.get(n_words)
+    if layout is None:
+        raise ValueError(
+            f"bloom_table has {n_words} words: neither {width} (i32) nor "
+            f"{width // 2} (p16) for bloom_log2_width="
+            f"{cfg.bloom_log2_width}")
+    if cfg.bloom_counter not in ("auto", layout):
+        raise ValueError(
+            f"bloom_table has {n_words} words, the {layout} layout, but "
+            f"the config names bloom_counter={cfg.bloom_counter!r}")
+    return layout
 
 
 def send_batch(batch, device, pack: bool = False):
@@ -176,16 +204,18 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     n_kmers = torch.zeros((), dtype=torch.int64, device=device)
     LAST_COUNT_FLUSHES = 0
     m.stage_start("count")
-    for batch in BackgroundBatcher(paths, cfg.batch_reads, cfg.max_read_len):
-        bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
-        n_kmers += bloom_insert(table, bases, params, pending, off)
-        if pending is not None:
-            off += pend_rows
-            if off == P:
-                host_ex = exact_flush(*host_ex, pending, off)
-                LAST_COUNT_FLUSHES += 1
-                off = 0
-        n_reads += batch.n
+    with maybe_trace("count", device):
+        for batch in BackgroundBatcher(paths, cfg.batch_reads,
+                                       cfg.max_read_len):
+            bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
+            n_kmers += bloom_insert(table, bases, params, pending, off)
+            if pending is not None:
+                off += pend_rows
+                if off == P:
+                    host_ex = exact_flush(*host_ex, pending, off)
+                    LAST_COUNT_FLUSHES += 1
+                    off = 0
+            n_reads += batch.n
     if host_ex is not None and off > 0:
         host_ex = exact_flush(*host_ex, pending, off)
         LAST_COUNT_FLUSHES += 1
@@ -196,7 +226,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t)
     log.info("count: threshold=%d", t)
     return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host,
-                      exact_cap=exact_cap)
+                      exact_cap=exact_cap, counter=params.counter)
 
 
 def _finish_count(cfg, host_ex, k, n_reads, n_kmers, tag="count"):
@@ -308,15 +338,19 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
     global LAST_COUNT_RETRIES, LAST_ROUTE_SAFETY, LAST_COUNT_FLUSHES
     k = k or cfg.k
     m = metrics or MetricsWriter(None)
+    # a p16 config raises here, before any rank work
+    sp = ShardedParams(bloom_params(cfg, k), n_shards=cfg.mesh_bucket)
     mesh = mesh or dmesh.current(cfg)
     if torch.device(device).type != mesh.device.type:
         raise ValueError(f"device {device} is not the mesh's "
                          f"{mesh.device}")
     device = mesh.device
     D, S = mesh.spec.data, mesh.spec.bucket
+    if S != sp.n_shards:
+        raise ValueError(f"mesh {D}x{S} is not the config's "
+                         f"{cfg.mesh_data}x{cfg.mesh_bucket}")
     if isinstance(paths, (str, tuple)):
         paths = [paths]
-    sp = ShardedParams(bloom_params(cfg, k), n_shards=S)
     w = num_words(k)
     n_flat = (cfg.batch_reads // (D * S)) * (cfg.max_read_len - k + 1)
     pending = None
@@ -478,16 +512,17 @@ def _shard_host_spectrum(cfg, host_ex, k, mesh, n_reads, n_kmers, tag):
 
 def count_state_from_numpy(cfg: KmeraxConfig, table, uniq, counts,
                            threshold: int, device) -> CountState:
-    """A CountState from count results held as numpy arrays — the
-    (2^log2_width,) int32 Bloom table, the sorted spectrum's uniq (N, W)
-    uint32 and counts (N,) int64, and the threshold — e.g. the JAX
-    package's, so the correct stage can be held against it alone."""
+    """A CountState from count results held as numpy arrays — the Bloom
+    table ((2^log2_width,) int32 counters or half as many p16 words), the
+    sorted spectrum's uniq (N, W) uint32 and counts (N,) int64, and the
+    threshold — e.g. the JAX package's, so the correct stage can be held
+    against it alone."""
     host = HostSpectrum(np.ascontiguousarray(uniq, dtype=np.uint32),
                         np.asarray(counts, dtype=np.int64), cfg.k)
     table = torch.tensor(np.asarray(table, dtype=np.int32), device=device)
-    if table.shape != (1 << cfg.bloom_log2_width,):
-        raise ValueError(f"table shape {tuple(table.shape)} does not match "
-                         f"bloom_log2_width={cfg.bloom_log2_width}")
+    if table.dim() != 1:
+        raise ValueError(f"table shape {tuple(table.shape)} is not flat")
+    counter = table_counter(cfg, table.shape[0])
     cap = cfg.exact_capacity if host.n_unique < cfg.exact_capacity else None
     return CountState(cfg, table, host.histogram(255), int(threshold), 0, 0,
-                      host=host, exact_cap=cap)
+                      host=host, exact_cap=cap, counter=counter)

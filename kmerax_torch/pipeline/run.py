@@ -27,7 +27,6 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
     ('cuda' raises without a card). out_fastq: one path, or one per input
     (paired-end R1/R2). `validate` aligns the corrected reads back to the
     contigs and only acts when out_fasta is given, as in the JAX package."""
-    cfg.require_ported()
     device = resolve_device(device)
     m = MetricsWriter(metrics_path if is_writer() else None)
     try:

@@ -95,7 +95,6 @@ def run_two_pass(cfg: KmeraxConfig, paths, out_fastq,
     raises without a card), checkpointed into `workdir` when given."""
     if not cfg.k2:
         raise ValueError("two-pass mode needs cfg.k2 set")
-    cfg.require_ported()
     device = resolve_device(device)
     if workdir is not None:
         os.makedirs(workdir, exist_ok=True)

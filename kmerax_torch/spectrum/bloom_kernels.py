@@ -3,16 +3,24 @@ range shard) and K2 (window solidity): the CUDA wrappers and their plain
 PyTorch versions (sources: csrc/bloom.cu).
 
 All three address k-mers under either bucket scheme of BloomParams (the
-kernels take `scheme_args`).
+kernels take `scheme_args`). K1 and K2 also take either counter layout of
+BloomParams ("i32", or "p16": two saturating 16-bit counters a word,
+spectrum/bloom.py), each a kernel of its own (`p16` template instances,
+counted apart in cuda.LAUNCHES as "bloom_insert_p16" and
+"bloom_query_solid_p16"); K1r takes i32 only, as a sharded spectrum keeps
+i32 counters.
 
 K1 replaces kmerax/spectrum/pallas_bloom.py::_insert_kernel together with
 the count step's addressing: it takes the (B, L) int8 read batch and does
 extraction, canonical form, hashing, the insert, the pending rows and the
-valid count in one launch. K2 replaces pallas_bloom.py::_query_kernel as
-the correct round calls it (kmerax/ops/correct.py::_window_counts): it
-takes the round's (B, L) int32 read batch and last_j and returns the
-solidity of every window, addressing them itself, in one launch. The table
-is the flat (nrows * 128,) int32 counter array.
+valid count in one launch; its p16 form replaces the kernel's `packed16`
+branch (pallas_bloom.py:97-103), a saturating halfword add. K2 replaces
+pallas_bloom.py::_query_kernel as the correct round calls it
+(kmerax/ops/correct.py::_window_counts): it takes the round's (B, L) int32
+read batch and last_j and returns the solidity of every window, addressing
+them itself, in one launch; its p16 form reads the halfword
+(pallas_bloom.py:232-235). The table is the flat (nrows * 128,) int32
+counter array, or the (nrows * 64,) p16 words.
 
 K1r replaces the same Pallas kernel as a mesh count calls it on a range
 shard (kmerax/spectrum/sharded.py::sharded_insert_step, insert_pallas with
@@ -94,12 +102,26 @@ def _lanes(lanepack: torch.Tensor, d: int) -> torch.Tensor:
                        dim=-1)
 
 
+def counter_name(base: str, params: BloomParams) -> str:
+    """The launch-count name of a kernel in the params' counter layout."""
+    return base if params.counter == "i32" else f"{base}_p16"
+
+
 def insert_plain(table: torch.Tensor, block: torch.Tensor,
                  lanepack: torch.Tensor, valid: torch.Tensor,
-                 d: int) -> None:
+                 d: int, counter: str = "i32") -> None:
     """In place: one one-hot row per k-mer (+1 per probed lane, +2 for a
     repeated lane), scatter-added into its block row — the XLA path of
-    kmerax/spectrum/bloom.py::insert. Invalid k-mers add a zero row."""
+    kmerax/spectrum/bloom.py::insert. Invalid k-mers add a zero row. A p16
+    table is unpacked, added to, saturated at SAT16 and packed back, as
+    there (bloom.py:151-156)."""
+    if counter == "p16":
+        from kmerax_torch.spectrum.bloom import SAT16, pack16, unpack16
+
+        t32 = unpack16(table)
+        insert_plain(t32, block, lanepack, valid, d)
+        table.copy_(pack16(t32.clamp_(max=SAT16)))
+        return
     table2d = table.view(-1, 128)
     pos = torch.arange(128, dtype=torch.int32, device=table.device)[None, :]
     for s in range(0, block.shape[0], _CHUNK):
@@ -124,7 +146,7 @@ def bloom_insert_plain(table: torch.Tensor, bases: torch.Tensor,
     canon, _ = canonical_words(words, k)
     block, lp = blocks_lanepack(params, canon)
     insert_plain(table, block.reshape(-1), lp.reshape(-1), valid.reshape(-1),
-                 params.num_hashes)
+                 params.num_hashes, params.counter)
     if pending is not None:
         rows = mask_invalid(canon, valid).reshape(-1, num_words(k))
         pending[off:off + rows.shape[0]] = to_u32_bits(rows)
@@ -132,9 +154,10 @@ def bloom_insert_plain(table: torch.Tensor, bases: torch.Tensor,
 
 
 def _check_batch(table, bases, dtype, params):
-    """The table and the (B, L) read batch K1 and K2 take."""
+    """The table (in the params' counter layout) and the (B, L) read batch
+    K1 and K2 take."""
     dev = table.device
-    cuda.require(table, "table", torch.int32, dev, (params.width,))
+    cuda.require(table, "table", torch.int32, dev, (params.table_entries,))
     cuda.require(bases, "bases", dtype, dev)
     if bases.dim() != 2:
         raise ValueError(f"bases: shape {tuple(bases.shape)}, expected (B, L)")
@@ -165,9 +188,10 @@ def bloom_insert(table: torch.Tensor, bases: torch.Tensor,
                  params: BloomParams, pending: Optional[torch.Tensor] = None,
                  off: int = 0) -> torch.Tensor:
     """K1: insert every k-mer of the (B, L) int8 read batch into the
-    counter table in place, and write their pending rows from row `off`
-    when `pending` ((P, W) int32) is given. Returns the number of valid
-    k-mers as a device int64 scalar."""
+    counter table (in the params' layout; p16 counters saturate at SAT16)
+    in place, and write their pending rows from row `off` when `pending`
+    ((P, W) int32) is given. Returns the number of valid k-mers as a device
+    int64 scalar."""
     _check_insert(table, bases, params, pending, off)
     if table.device.type == "cpu":
         return bloom_insert_plain(table, bases, params, pending, off)
@@ -176,11 +200,12 @@ def bloom_insert(table: torch.Tensor, bases: torch.Tensor,
     rc = cuda.lib().kmerax_bloom_insert(
         table.data_ptr(), bases.data_ptr(), B, L, params.k,
         (1 << (params.log2_width - 7)) - 1, params.num_hashes,
-        *scheme_args(params), None if pending is None else pending.data_ptr(),
-        off,
+        *scheme_args(params), int(params.counter == "p16"),
+        None if pending is None else pending.data_ptr(), off,
         n_valid.data_ptr(), cuda.stream())
-    cuda.LAUNCHES["bloom_insert"] += 1
-    cuda.check(rc, "bloom_insert")
+    name = counter_name("bloom_insert", params)
+    cuda.LAUNCHES[name] += 1
+    cuda.check(rc, name)
     return n_valid
 
 
@@ -238,6 +263,9 @@ def bloom_insert_rows(table: torch.Tensor, rows: torch.Tensor,
     room for all N rows from `off` (the valid count is known only after the
     launch). Returns the number of valid rows as a device int64 scalar."""
     dev = table.device
+    if params.counter != "i32":
+        raise ValueError("sharded spectra keep i32 counters (packed-halfword "
+                         "psum carries)")
     if not 7 < local_bits <= params.log2_width:
         raise ValueError(f"local_bits {local_bits} outside (7, "
                          f"{params.log2_width}]")
@@ -280,11 +308,19 @@ def bloom_insert_rows(table: torch.Tensor, rows: torch.Tensor,
 
 def query_solid_plain(table: torch.Tensor, block: torch.Tensor,
                       lanepack: torch.Tensor, valid: torch.Tensor,
-                      d: int, t: int) -> torch.Tensor:
+                      d: int, t: int, counter: str = "i32") -> torch.Tensor:
     """Gather the d probed lanes of each k-mer's block and test all >= t
-    (`bloom.query(...) >= t` of the JAX package); invalid -> False."""
-    idx = block.to(torch.int64)[:, None] * 128 + _lanes(lanepack, d)
-    return torch.all(table[idx] >= t, dim=-1) & valid
+    (`bloom.query(...) >= t` of the JAX package); invalid -> False. A p16
+    counter is the halfword block & 1 of word row block >> 1
+    (bloom.py:274-280)."""
+    block = block.to(torch.int64)
+    if counter == "p16":
+        idx = (block >> 1)[:, None] * 128 + _lanes(lanepack, d)
+        shift = (16 * (block & 1))[:, None]
+        vals = (table[idx].to(torch.int64) >> shift) & 0xFFFF
+    else:
+        vals = table[block[:, None] * 128 + _lanes(lanepack, d)]
+    return torch.all(vals >= t, dim=-1) & valid
 
 
 def bloom_query_solid_plain(table: torch.Tensor, bases: torch.Tensor,
@@ -299,7 +335,8 @@ def bloom_query_solid_plain(table: torch.Tensor, bases: torch.Tensor,
     canon, _ = canonical_words(words, k)
     block, lp = blocks_lanepack(params, canon)
     solid = query_solid_plain(table, block.reshape(-1), lp.reshape(-1),
-                              valid.reshape(-1), params.num_hashes, t)
+                              valid.reshape(-1), params.num_hashes, t,
+                              params.counter)
     j = torch.arange(valid.shape[1], dtype=torch.int32, device=bases.device)
     return solid.view(valid.shape) & (j[None, :] <= last_j[:, None])
 
@@ -310,7 +347,8 @@ def bloom_query_solid(table: torch.Tensor, bases: torch.Tensor,
     """K2: the round-start solidity of every window of the (B, L) int32
     read batch, (B, L-k+1) bool: window j of read r is solid iff it starts
     in [0, last_j[r]], holds no base >= 4, and every one of the d probed
-    lanes of its canonical k-mer is >= t."""
+    lanes of its canonical k-mer is >= t (in the params' counter
+    layout)."""
     _check_batch(table, bases, torch.int32, params)
     cuda.require(last_j, "last_j", torch.int32, table.device,
                  (bases.shape[0],))
@@ -322,8 +360,9 @@ def bloom_query_solid(table: torch.Tensor, bases: torch.Tensor,
     rc = cuda.lib().kmerax_bloom_query_solid(
         table.data_ptr(), bases.data_ptr(), B, L, params.k,
         last_j.data_ptr(), (1 << (params.log2_width - 7)) - 1,
-        params.num_hashes, *scheme_args(params), int(t), out.data_ptr(),
-        cuda.stream())
-    cuda.LAUNCHES["bloom_query_solid"] += 1
-    cuda.check(rc, "bloom_query_solid")
+        params.num_hashes, *scheme_args(params),
+        int(params.counter == "p16"), int(t), out.data_ptr(), cuda.stream())
+    name = counter_name("bloom_query_solid", params)
+    cuda.LAUNCHES[name] += 1
+    cuda.check(rc, name)
     return out

@@ -51,6 +51,10 @@ class ShardedParams:
         assert S & (S - 1) == 0, "bucket shards must be a power of two"
         assert S <= (1 << self.bloom.log2_buckets), \
             "more shards than minimizer buckets"
+        # the JAX package asserts the same (kmerax/spectrum/sharded.py:52)
+        if self.bloom.counter != "i32":
+            raise ValueError("sharded spectra keep i32 counters "
+                             "(packed-halfword psum carries)")
 
     @property
     def shard_bits(self) -> int:

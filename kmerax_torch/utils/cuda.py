@@ -28,12 +28,14 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# launches per kernel wrapper: each wrapper adds one where it launches its
-# CUDA kernel and nowhere else (never on its plain CPU path), so a run can
-# show that the main path went through the kernels
+# launches per kernel: each wrapper adds one where it launches its CUDA
+# kernel and nowhere else (never on its plain CPU path), so a run can show
+# that the main path went through the kernels; K1-K3 count their p16
+# counter layout apart ("_p16")
 LAUNCHES = {"bloom_insert": 0, "bloom_insert_rows": 0,
             "bloom_query_solid": 0, "correct_eval_scores": 0,
-            "banded_align_scores": 0}
+            "banded_align_scores": 0, "bloom_insert_p16": 0,
+            "bloom_query_solid_p16": 0, "correct_eval_scores_p16": 0}
 
 
 def reset_launches() -> None:
@@ -152,14 +154,14 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(str(so))
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     L.kmerax_bloom_insert.argtypes = [
-        P, P, I, I, I, ctypes.c_uint32, I, I, I, P, I64, P, P]
+        P, P, I, I, I, ctypes.c_uint32, I, I, I, I, P, I64, P, P]
     L.kmerax_bloom_insert_rows.argtypes = [
         P, P, P, I64, I, ctypes.c_uint32, ctypes.c_uint32, I, I, I, P, I64,
         P, ctypes.c_uint32, I, P, P]
     L.kmerax_bloom_query_solid.argtypes = [
-        P, P, I, I, I, P, ctypes.c_uint32, I, I, I, I, P, P]
+        P, P, I, I, I, P, ctypes.c_uint32, I, I, I, I, I, P, P]
     L.kmerax_correct_eval_scores.argtypes = [
-        P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, I, I, P, P]
+        P, I, P, P, P, P, I64, P, ctypes.c_uint32, I, I, I, I, I, I, P, P]
     L.kmerax_banded_align_scores.argtypes = [
         P, I, P, I, P, P, I64, I, I, P, P]
     for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_insert_rows,

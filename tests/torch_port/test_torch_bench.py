@@ -226,7 +226,8 @@ def test_mesh_override_not_ported(tmp_path, monkeypatch):
     """A mesh override is ported now: config 4 with mesh_data=2 runs its
     stages on a 2 x 1 gloo mesh of spawned ranks, says so in its report,
     and writes the 1 x 1 run's FASTQ bytes; its wall is rank 0's stages,
-    the ranks' launch reported apart; the p16 counters stay refused."""
+    the ranks' launch reported apart. p16 counters run too (on one
+    device) and write the same bytes."""
     from kmerax_torch.dist import mesh as dmesh
 
     monkeypatch.setattr(dmesh, "LAUNCH_TIMEOUT", 300)
@@ -244,6 +245,9 @@ def test_mesh_override_not_ported(tmp_path, monkeypatch):
     for f in outs:
         assert (tmp_path / "two" / f).read_bytes() == \
             (tmp_path / "one" / f).read_bytes(), f
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_config(4, scale=0.02, workdir=str(tmp_path / "p16"),
-                   overrides={"bloom_counter": "p16"}, device="cpu")
+    p16 = run_config(4, scale=0.02, workdir=str(tmp_path / "p16"),
+                     overrides={"bloom_counter": "p16"}, device="cpu")
+    assert p16["mesh"] == [1, 1] and p16["accuracy"] == one["accuracy"]
+    for f in outs:
+        assert (tmp_path / "p16" / f).read_bytes() == \
+            (tmp_path / "one" / f).read_bytes(), f

@@ -1,6 +1,6 @@
 """Guards on the port's boundaries: it imports no JAX and reads no file of
 the JAX package, its config is the JAX package's, the card is never
-silently replaced by the CPU, and paths not yet ported fail loudly."""
+silently replaced by the CPU, and paths that cannot run fail loudly."""
 
 import ast
 import dataclasses
@@ -165,6 +165,27 @@ def test_unported_flags_fail(tmp_path, extra, monkeypatch):
                                 dict(bloom_counter="p16", mesh_data=2,
                                      mesh_bucket=2)])
 def test_unported_config_fails(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_pipeline(KmeraxConfig(**kw), ["r.fastq"],
-                     str(tmp_path / "o.fastq"), device="cpu")
+    """p16 counters are ported: on one device the pipeline runs and writes
+    the i32 run's bytes; on a mesh it raises the JAX package's words
+    before any rank work (sharded spectra keep i32 counters)."""
+    from sim import ecoli_like, make_fastq
+
+    _, reads = ecoli_like(seed=3, genome_len=1200, coverage=20,
+                          read_len=100, error_rate=0.01)
+    fq = tmp_path / "r.fastq"
+    fq.write_bytes(make_fastq(reads))
+    base = dict(k=31, bloom_log2_width=15, batch_reads=128,
+                max_read_len=100, exact_capacity=1 << 16)
+    if kw.get("mesh_data", 1) > 1:
+        with pytest.raises(ValueError,
+                           match="sharded spectra keep i32 counters"):
+            run_pipeline(KmeraxConfig(**base, **kw), [str(fq)],
+                         str(tmp_path / "o.fastq"), device="cpu")
+        assert not (tmp_path / "o.fastq").exists()
+        return
+    res = {c: run_pipeline(KmeraxConfig(**base, bloom_counter=c), [str(fq)],
+                           str(tmp_path / f"{c}.fastq"), device="cpu")
+           for c in ("p16", "i32")}
+    assert res["p16"] == res["i32"] and res["p16"]["edited_reads"] > 0
+    assert (tmp_path / "p16.fastq").read_bytes() == \
+        (tmp_path / "i32.fastq").read_bytes()

@@ -88,10 +88,9 @@ def test_blocks_lanepack_matches_jax(k):
 def test_config_selects_the_scheme():
     cfg = KmeraxConfig(bucket_scheme="minimizer", minimizer_m=13,
                        num_buckets=64, bloom_log2_width=20)
-    assert cfg.unported_fields() == []
     p = bloom_params(cfg, 31)
-    assert (p.bucket_scheme, p.minimizer_m, p.log2_buckets) == \
-        ("minimizer", 13, 6)
+    assert (p.bucket_scheme, p.minimizer_m, p.log2_buckets, p.counter) == \
+        ("minimizer", 13, 6, "i32")
 
 
 @pytest.mark.parametrize("k", [25, 31, 63])
