@@ -10,11 +10,13 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
 
   1. device and toolchain: card name and power limit, torch/CUDA/nvcc
      versions; builds the CUDA kernels from kmerax_torch/csrc.
-  2. each kernel (K1 bloom_insert and K2 bloom_query_solid at k = 25, 31,
-     63 on a config-1 read batch, K3 correct_eval_scores at k = 25, 31,
-     63, K1-K3 under the hash and again under the minimizer bucket scheme
-     (m = 11, 256 buckets), K4 banded_align_scores at band 15 and 63 in
-     each of its lanes-per-read layouts, each timed) against its plain
+  2. each kernel (K1 bloom_insert and K2 bloom_query_solid at k = 15,
+     25, 31, 33, 63 on a config-1 read batch, K3 correct_eval_scores at
+     the same k, K1-K3 under the hash and again under the minimizer bucket
+     scheme (m = 11, 256 buckets), timed at k = 25, 31, 63 (k = 15 and 33
+     hold the one- and three-word instantiations), K4 banded_align_scores
+     at band 15 and 63 in each of its lanes-per-read layouts, each timed)
+     against its plain
      PyTorch version on the card at its path's shapes: exact integer
      equality (tolerance 0, all outputs are integers). Each kernel's
      device time per launch over 50 back-to-back launches, its host time
@@ -24,7 +26,7 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      counter rows, and one PyTorch call's time where one computes the
      same function (K1: index_add_ at its lanes). K1r bloom_insert_rows,
      the routed-row insert of a mesh count, on the same config-1 batches at
-     k = 25, 31, 63 under both schemes: the k-mers routed to S = 1, 2, 4
+     k = 15, 25, 31, 33, 63 under both schemes: the k-mers routed to S = 1, 2, 4
      and 8 range shards by the port's plain route prep, each shard
      inserted by K1r == its plain version exactly (the slice, the valid
      rows it appends to pending, their count), and the S slices,
@@ -33,7 +35,7 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      each S at each number of routed slots a thread, and at S = 1 on the
      same rows sorted by block and grouped by 512 and 256 MiB region.
      K1, K2 and K3 on p16 counters (2^29 counters in 2^28 words) == their
-     plain versions at k = 25, 31, 63 under both schemes, K1's words
+     plain versions at k = 15, 25, 31, 33, 63 under both schemes, K1's words
      unpacked == min(its i32 table, SAT16) on the same batch, and a batch
      whose one read is inserted until its counters pass SAT16; each p16
      kernel timed as its i32 row at k=31, and K1-K3 on i32 and p16 counters
@@ -98,7 +100,9 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
 
 Phase 4's count profiler window runs in a child process of its own
 (`python3 chip_smoke.py --child NAME ARG`, used by the script itself), as
-does phase 7's wire profile. Each phase prints its wall, the script its
+does phase 7's wire profile. `python3 chip_smoke.py --turns TREE...` runs
+no phase: it times K1-K3 and K1r in each checkout TREE in turn, each in a
+process of its own (`turns`), to compare two versions on one card. Each phase prints its wall, the script its
 total. Every failure raises. The last line is {"ok": true, "device":
 {...}}. Exits nonzero without printing a result where CUDA is absent.
 """
@@ -270,6 +274,10 @@ SECTOR = 32                             # bytes of one DRAM sector
 _COUNTER_BYTES = {"i32": 4, "p16": 2}
 # phase 2's batch (reads x length) and table (log2 counters): config 1's
 K_READS, K_LEN, K_LOG2_WIDTH = 4096, 160, 29
+# the k phase 2 holds K1-K3 and K1r to their plain versions at: every word
+# count W = ceil(k/16) the kernels instantiate (15: W = 1; 33: W = 3, K3's
+# first two-warps-a-variant case), and the k it times them at
+K_CHECKED, K_TIMED = (15, 25, 31, 33, 63), (25, 31, 63)
 # the minimizer bucket scheme's settings (KmeraxConfig defaults): m = 11,
 # 256 buckets
 MINIMIZER_M, LOG2_BUCKETS = 11, 8
@@ -519,7 +527,7 @@ def phase_kernels(device=DEVICE):
 
 def _check_p16(rng, device, index_add_ms):
     """K1, K2 and K3 on p16 counters (2^29 counters, 1 GiB of words) ==
-    their plain versions at k = 25, 31 and 63 under both bucket schemes,
+    their plain versions at k in K_CHECKED under both bucket schemes,
     K1's words unpacked == min(K1's i32 table, SAT16), and the saturation
     case (`_p16_saturation`); then the layouts' times at 2^24 and 2^29
     counters (`_by_width`). Returns the p16 records, hash scheme, k=31
@@ -562,7 +570,7 @@ def _check_p16(rng, device, index_add_ms):
 
 def _check_k1_p16(rng, device, scheme):
     """K1 on p16 counters == its plain version on one config-1 batch (4096
-    x 160 int8 into 2^29 counters) at k = 25, 31 and 63 under the bucket
+    x 160 int8 into 2^29 counters) at k in K_CHECKED under the bucket
     `scheme`: the words, the pending rows written from a nonzero row offset
     and the valid count; and its words unpacked == min(K1's i32 table,
     SAT16) on the same batch. Returns the record at k=31, timed as the
@@ -578,7 +586,7 @@ def _check_k1_p16(rng, device, scheme):
 
     B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
     rec, err_max = None, 0
-    for k in (25, 31, 63):
+    for k in K_CHECKED:
         p = _params(k, scheme, counter="p16")
         reads, _ = _reads(rng, B, L, k)
         bases = torch.as_tensor(reads.astype(np.int8), device=device)
@@ -770,10 +778,10 @@ def _by_width(rng, device) -> dict:
 
 def _check_k1(rng, device, scheme="hash"):
     """K1 == its plain version on one config-1 batch (4096 x 160 int8 into
-    2^29 counters) at k = 25, 31 and 63 under the bucket `scheme`: table
+    2^29 counters) at k in K_CHECKED under the bucket `scheme`: table
     bytes, the pending rows written from a nonzero row offset, and the
-    valid count. Returns the kernel record at k=31, timed as the count step
-    calls it."""
+    valid count; timed at k in K_TIMED. Returns the kernel record at k=31,
+    timed as the count step calls it."""
     import numpy as np
     import torch
     from kmerax_torch.core.codec import canonical_words, num_words
@@ -785,7 +793,7 @@ def _check_k1(rng, device, scheme="hash"):
 
     B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
     rec, err_max = None, 0
-    for k in (25, 31, 63):
+    for k in K_CHECKED:
         p = _params(k, scheme)
         reads, _ = _reads(rng, B, L, k)
         bases = torch.as_tensor(reads.astype(np.int8), device=device)
@@ -809,6 +817,14 @@ def _check_k1(rng, device, scheme="hash"):
             raise AssertionError(f"K1 test is degenerate at k={k}")
         err_max = max(err_max, err)
         del tp, pp
+        if k not in K_TIMED:
+            say(f"phase2 K1 bloom_insert == plain at k={k}, {scheme} scheme: "
+                f"{B} x {L} int8 batch into 2^{LW} counters, table bytes, "
+                f"{rows} pending rows from row {rows} and valid count "
+                f"{int(nk)} equal")
+            del tk, pk
+            torch.cuda.empty_cache()
+            continue
         # the counters and sectors these k-mers touch, and the one PyTorch
         # call that adds the same ones at precomputed flat lane indices
         words, valid = extract_kmers(bases, k)
@@ -981,7 +997,7 @@ def _k1r_patterns(rows, rv, p, lb, device, scheme) -> int:
 
 def _check_k1r(rng, device, scheme="hash"):
     """K1r == its plain version on the routed rows of one config-1 batch
-    (4096 x 160 int8, 2^29 counters in all) at k = 25, 31 and 63 under the
+    (4096 x 160 int8, 2^29 counters in all) at k in K_CHECKED under the
     bucket `scheme`: the batch's k-mers routed by the plain route prep
     (spectrum/sharded.py::route_prep, route_safety 4, one sender) to S =
     1, 2, 4 and 8 shards; each shard's slice, its pending buffer (the
@@ -1004,7 +1020,7 @@ def _check_k1r(rng, device, scheme="hash"):
 
     B, L, LW, d = K_READS, K_LEN, K_LOG2_WIDTH, 4
     rec, err_max, ms_by_shards, ms_by_spt = None, 0, {}, {}
-    for k in (25, 31, 63):
+    for k in K_CHECKED:
         p = _params(k, scheme)
         W = num_words(k)
         reads, _ = _reads(rng, B, L, k)
@@ -1111,8 +1127,8 @@ def _check_k1r(rng, device, scheme="hash"):
     return rec
 
 
-def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
-              phase="phase2", scheme="hash", counter="i32", timed=None):
+def _check_k2(rng, tk, device, ks=K_CHECKED, real=None,
+              phase="phase2", scheme="hash", counter="i32", timed=K_TIMED):
     """K2 == bloom_query_solid_plain at k in ks on a 4096 x 160 int32 batch
     (Ns, ragged lengths, 2 % of the reads shorter than k, so last_j < 0)
     whose first half `_fill3` inserted three times into the table `tk` and
@@ -1129,7 +1145,6 @@ def _check_k2(rng, tk, device, ks=(25, 31, 63), real=None,
 
     B, L, d = K_READS, K_LEN, 4
     LW = (tk.numel() * (2 if counter == "p16" else 1)).bit_length() - 1
-    timed = ks if timed is None else timed
     name = "bloom_query_solid" if counter == "i32" \
         else "bloom_query_solid_p16"
 
@@ -1239,8 +1254,8 @@ def _k3_traffic(pk, table, t, args):
     return tot
 
 
-def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
-              phase="phase2", scheme="hash", counter="i32", timed=None):
+def _check_k3(rng, tk, fill, Q, device, ks=K_CHECKED, real=None,
+              phase="phase2", scheme="hash", counter="i32", timed=K_TIMED):
     """K3 == eval_scores_plain at k in ks on Q entries over a 4096 x 160
     batch whose k-mers `fill` inserted three times into the table `tk`:
     negative window starts (positions < k-1), padding entries (-1) and
@@ -1254,7 +1269,6 @@ def _check_k3(rng, tk, fill, Q, device, ks=(25, 31, 63), real=None,
 
     B, L, d = K_READS, K_LEN, 4
     LW = (tk.numel() * (2 if counter == "p16" else 1)).bit_length() - 1
-    timed = ks if timed is None else timed
     name = "correct_eval_scores" if counter == "i32" \
         else "correct_eval_scores_p16"
 
@@ -1918,7 +1932,7 @@ def phase_config1(workdir: str, recs=None,
                    real=(params, result["threshold"], k2_args),
                    phase="phase4")
     k3 = _check_k3(np.random.default_rng(SEED + 3), table, _fill3,
-                   args[3].numel(), DEVICE,
+                   args[3].numel(), DEVICE, ks=K_TIMED,
                    real=(params, result["threshold"], args), phase="phase4")
     del table
     torch.cuda.empty_cache()
@@ -2329,7 +2343,102 @@ def _child_wire(arg) -> dict:
     return out
 
 
-_CHILDREN = {"count_window": _child_count_window, "wire": _child_wire}
+def _child_kernel_times(arg) -> dict:
+    """Each kernel's own device ms per launch (profiler, 50 launches after
+    3) in the checkout `arg["tree"]`, whose kmerax_torch this process
+    imports and builds: K1 (with its pending rows) and K3 (16,384 entries,
+    t=3, on the table K1's batch filled three times) at k in K_TIMED, K2
+    (t=3) and K1r (the batch's k-mers routed to one shard) at k=31; under
+    both bucket schemes, on i32 counters, on phase 2's shapes drawn from
+    one seed a k, so that every checkout times the same work."""
+    sys.path.insert(0, os.path.abspath(arg["tree"]))
+    import numpy as np
+    import torch
+    import kmerax_torch
+    from kmerax_torch.core.codec import canonical_words, num_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.ops.correct_kernels import correct_eval_scores
+    from kmerax_torch.spectrum.bloom import make_table
+    from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
+        bloom_insert_rows, bloom_query_solid
+    from kmerax_torch.spectrum.exact import sentinel_rows
+    from kmerax_torch.spectrum.sharded import ShardedParams, route_prep
+
+    if not kmerax_torch.__file__.startswith(sys.path[0] + os.sep):
+        raise AssertionError(f"kmerax_torch from {kmerax_torch.__file__}, "
+                             f"not {sys.path[0]}")
+    B, L, Q, dev = K_READS, K_LEN, 4 * K_READS, DEVICE
+    out = {}
+    for scheme in ("hash", "minimizer"):
+        for k in K_TIMED:
+            rng = np.random.default_rng(SEED + k)
+            p, W = _params(k, scheme), num_words(k)
+            reads, lengths = _reads(rng, B, L, k)
+            bases8 = torch.as_tensor(reads.astype(np.int8), device=dev)
+            table = make_table(p, dev)
+            pending = sentinel_rows(B * (L - k + 1), W, dev)
+            out[f"K1 {scheme} k={k}"] = _kernel_ms(
+                lambda: bloom_insert(table, bases8, p, pending, 0),
+                "bloom_insert_kernel")
+            del pending
+            _fill3(table, p, reads)
+            bases = torch.as_tensor(reads, device=dev)
+            lens = torch.as_tensor(lengths, device=dev)
+            ent_i = rng.integers(0, L, Q).astype(np.int32)
+            ent_i[:Q // 16] = -1
+            ent_i[Q // 16:Q // 8] = rng.integers(0, k - 1, Q // 16)
+            args = (bases, lens, lens - k,
+                    torch.as_tensor(rng.integers(0, B, Q).astype(np.int32),
+                                    device=dev),
+                    torch.as_tensor(ent_i, device=dev))
+            out[f"K3 {scheme} k={k}"] = _kernel_ms(
+                lambda: correct_eval_scores(p, table, 3, *args),
+                "correct_eval_scores_kernel")
+            if k == 31:
+                out[f"K2 {scheme} k={k}"] = _kernel_ms(
+                    lambda: bloom_query_solid(table, bases, lens - k, p, 3),
+                    "bloom_query_solid_kernel")
+                words, valid = extract_kmers(bases8, k)
+                canon, _ = canonical_words(words, k)
+                sp = ShardedParams(p, 1)
+                send, _, _ = route_prep(canon.reshape(-1, W),
+                                        valid.reshape(-1), sp)
+                rows, rv = send[:, :W].contiguous(), send[:, W] != 0
+                lb, cap = sp.local_bits, send.shape[0]
+                t = torch.zeros(1 << lb, dtype=torch.int32, device=dev)
+                pend = sentinel_rows(2 * cap, W, dev)
+                out[f"K1r {scheme} k={k}"] = _kernel_ms(
+                    lambda: bloom_insert_rows(t, rows, rv, p, lb, pend, cap),
+                    "bloom_insert_rows")
+                del words, valid, canon, send, rows, rv, t, pend
+            del table, args
+            torch.cuda.empty_cache()
+    return out
+
+
+def turns(trees) -> None:
+    """`python3 chip_smoke.py --turns TREE...`: _child_kernel_times in each
+    checkout, in the order given (e.g. parent, change, change, parent),
+    each in a process of its own; prints each turn's times and then, per
+    kernel, its times in turn order, with the card's name and power
+    limit."""
+    global CARD
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    say(CARD)
+    res = []
+    for tree in trees:
+        res.append(_child("kernel_times", {"tree": tree}))
+        num(f"turn {tree}: {json.dumps(res[-1])}")
+    for key in res[0]:
+        num(f"turns {key} (own device ms per launch, profiler): "
+            + ", ".join(f"{tree} {r[key]}" for tree, r in zip(trees, res)))
+
+
+_CHILDREN = {"count_window": _child_count_window, "wire": _child_wire,
+             "kernel_times": _child_kernel_times}
 
 
 def _say_wire(prof: dict, n_batches: int, B: int, L: int) -> None:
@@ -3071,6 +3180,9 @@ def main() -> int:
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     if sys.argv[1:2] == ["--child"]:          # _child: one JSON line
         print(json.dumps(_CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))))
+        return 0
+    if sys.argv[1:2] == ["--turns"]:
+        turns(sys.argv[2:])
         return 0
     t_start = time.perf_counter()
     t0 = t_start

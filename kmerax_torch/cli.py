@@ -316,7 +316,10 @@ def _load_or_count(cfg: KmeraxConfig, args, m, device):
     """The count state of `correct` and `assemble`: from `--spectrum`
     (with the config saved there) or counted from `--in`. As in the JAX
     package, a checkpoint's spectrum is read from its padded exact form
-    only (`exact_uniq`), never from `host_uniq`."""
+    only (`exact_uniq`), never from `host_uniq`. The table is probed in
+    its own counter layout: a CLI config that names the other layout
+    explicitly raises (the JAX package would read the words in the CLI's
+    layout); "auto" takes the table's."""
     from kmerax_torch.pipeline.checkpoint import load_spectrum, \
         state_from_checkpoint
     from kmerax_torch.pipeline.count import run_count
@@ -327,8 +330,15 @@ def _load_or_count(cfg: KmeraxConfig, args, m, device):
             log.error("no spectrum at %s", args.spectrum)
             sys.exit(2)
         scfg = KmeraxConfig(**manifest["config"])
-        return state_from_checkpoint(scfg, manifest, arrays, device,
-                                     host_form=False)
+        state = state_from_checkpoint(scfg, manifest, arrays, device,
+                                      host_form=False)
+        if cfg.bloom_counter not in ("auto", state.counter):
+            raise ValueError(
+                f"--spectrum {args.spectrum}: the saved bloom_table is in "
+                f"the {state.counter} layout, but the config names "
+                f"bloom_counter={cfg.bloom_counter!r} (the "
+                f"{cfg.bloom_counter} layout)")
+        return state
     if not getattr(args, "inputs", None):
         log.error("need --in reads or --spectrum dir")
         sys.exit(2)

@@ -23,7 +23,8 @@
 // the int32 table and d <= 4 lanes in it, 7 bits each of its second hash.
 // The row comes from kmerax_block (kmerax.cuh) under the bucket scheme, a
 // template parameter: the hash scheme's low bits of h1, or the minimizer
-// scheme's bucket above them (k-m+1 more mix32 per k-mer).
+// scheme's bucket above them (K2: k-m+1 more mix32 per k-mer; K1: the
+// least of k-m+1 m-mer hashes its warp staged once for the read, below).
 // K1 adds +1 per probe (a repeated lane gets +2); K2 reports whether every
 // probed lane is >= t. Invalid k-mers add nothing and report 0.
 //
@@ -112,6 +113,44 @@ static __device__ __forceinline__ void pack_read(uint32_t* P, uint32_t* N,
     __syncwarp();
 }
 
+// K1 under the minimizer scheme: the warp stages its read's m-mer hashes
+// (kmerax.cuh) once, after packing it. Each of the read's L-m+1 positions
+// gets F (forward m-mer) and R (its reverse complement) in two arrays
+// whose bases lie a multiple of 32 words apart, so that the 32 lanes of a
+// window step, each on its own strand, read 32 distinct banks. A window's
+// minimizer is then the least of its k-m+1 entries of the kept strand's
+// array (kmerax_canonical_strand): shared loads and mins, no mix32. (Block
+// prefix and suffix minima of width k-m+1, one min of two a k-mer, took
+// the same time within 2 % on an H100 at twice the shared memory:
+// PERF.md.)
+
+// words of one staged array for reads of L bases, rounded up to 32
+static __host__ __device__ __forceinline__ int mmer_stride(int L, int m) {
+    return (L - m + 1 + 31) / 32 * 32;
+}
+
+// the warp fills its staging S (F, then R at S + stride) for the packed
+// read P: nm = L-m+1 positions
+static __device__ __forceinline__ void stage_mmers(const uint32_t* P,
+                                                   uint32_t* S, int stride,
+                                                   int nm, int m, int lane) {
+    for (int p = lane; p < nm; p += 32) {
+        const uint32_t x = kmerax_mmer(P, p, m);
+        S[p] = kmerax_mix32(x);
+        S[stride + p] = kmerax_mix32(kmerax_mmer_rc(x, m));
+    }
+    __syncwarp();
+}
+
+// the minimizer of the k-mer at j (its m-mers j..j+w-1) on the strand kept
+static __device__ __forceinline__ uint32_t staged_minimizer(
+    const uint32_t* S, int stride, int j, int w, bool fwd) {
+    const uint32_t* a = S + (fwd ? 0 : stride);
+    uint32_t best = KMERAX_FULL_MASK;
+    for (int i = j; i < j + w; ++i) best = min(best, a[i]);
+    return best;
+}
+
 template <int W, bool kMinimizer, typename Counter>
 __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
                                     const int8_t* __restrict__ bases, int B,
@@ -132,6 +171,13 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
     if (r < B) {                             // warp-uniform
         pack_read(P, N, bases + r * L, L, lane);
         const int nk = L - k + 1;
+        [[maybe_unused]] uint32_t* S = nullptr;
+        [[maybe_unused]] int stride = 0;
+        if constexpr (kMinimizer) {
+            stride = mmer_stride(L, m);
+            S = smem + kWarps * (3 * nch + 1) + warp * 2 * stride;
+            stage_mmers(P, S, stride, L - m + 1, m, lane);
+        }
         for (int j0 = 0; j0 < nk; j0 += 32) {
             const int j = j0 + lane;
             const bool in = j < nk;
@@ -140,12 +186,22 @@ __global__ void bloom_insert_kernel(int32_t* __restrict__ table,
             uint32_t block = 0, h2 = 0;
             if (ok) {
                 kmerax_window_words<W>(P, j, k, words);
-                kmerax_canonicalize(words, W, k);
-                const uint32_t h1 = kmerax_kmer_hash(words, W,
-                                                     KMERAX_HASH_SEED_1);
-                h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-                block = kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
-                                                    m, log2_buckets);
+                if constexpr (kMinimizer) {
+                    const bool fwd = kmerax_canonical_strand(words, W, k);
+                    const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                         KMERAX_HASH_SEED_1);
+                    h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
+                    block = kmerax_bucket_block(
+                        staged_minimizer(S, stride, j, k - m + 1, fwd), h1,
+                        block_mask, log2_buckets);
+                } else {
+                    kmerax_canonicalize(words, W, k);
+                    const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                         KMERAX_HASH_SEED_1);
+                    h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
+                    block = kmerax_block<W, kMinimizer>(
+                        words, k, h1, block_mask, m, log2_buckets);
+                }
                 if constexpr (!Counter::kWarpAdd)
                     Counter::add(table, block, h2, d);
             }
@@ -344,6 +400,16 @@ cudaError_t smem_bytes(int L, size_t* smem) {
     return *smem > 48 * 1024 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
+// K1's dynamic shared memory: smem_bytes(L) and, under the minimizer
+// scheme, each warp's staged m-mer hashes (10.5 KB a block at L = 160, m =
+// 11); above 48 KB the launch opts in to more, up to the card's limit a
+// block (227 KB on an H100: reads up to ~3,400 bases)
+size_t insert_smem_bytes(int L, int m) {
+    return (size_t)kWarps
+           * (3 * ((L + 31) / 32) + 1 + (m ? 2 * mmer_stride(L, m) : 0))
+           * sizeof(uint32_t);
+}
+
 }  // namespace
 
 // p16 != 0: the table is p16 words (CounterP16), else int32 counters
@@ -355,16 +421,24 @@ extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
     if (B <= 0) return (int)cudaGetLastError();
     size_t smem;
     if (smem_bytes(L, &smem) != cudaSuccess) return (int)cudaErrorInvalidValue;
+    smem = insert_smem_bytes(L, m);
     uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
     auto* nv = reinterpret_cast<unsigned long long*>(n_valid);
     const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
     return (int)kmerax_dispatch_layout(k, m, p16, [&](auto w, auto mz,
                                                       auto layout) {
-        bloom_insert_kernel<decltype(w)::value, decltype(mz)::value,
-                            decltype(layout)>
-            <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k,
-                                               block_mask, d, m, log2_buckets,
-                                               pend, off, nv);
+        auto kernel = bloom_insert_kernel<decltype(w)::value,
+                                          decltype(mz)::value,
+                                          decltype(layout)>;
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem);
+            if (e != cudaSuccess) return e;
+        }
+        kernel<<<grid, kThreads, smem, stream>>>(table, bases, B, L, k,
+                                                 block_mask, d, m,
+                                                 log2_buckets, pend, off, nv);
         return cudaGetLastError();
     });
 }

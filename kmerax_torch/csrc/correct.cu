@@ -9,9 +9,10 @@
 // each of the 4 center substitutions v and each of the k windows j that
 // cover ic, the k-mer bases[ic-(k-1)+j .. ic+j] with base v at ic is built,
 // canonicalized, hashed with murmur3 and probed against the counter table;
-// scores[q][v] counts the solid (v, j) k-mers. The block row comes from
-// kmerax_block under either bucket scheme (a template parameter), as in K1
-// and K2; the TPU kernel's hash-scheme-only restriction is an artifact of
+// scores[q][v] counts the solid (v, j) k-mers. The block row follows
+// either bucket scheme (a template parameter), as in K1 and K2: the hash
+// scheme's kmerax_block, or the minimizer scheme's kmerax_bucket_block of
+// the staged m-mer hashes (below); the TPU kernel's hash-scheme-only restriction is an artifact of
 // its layout and does not carry over. The counter layout is a template
 // parameter too (kmerax.cuh): i32, or p16, the halfword probe the Pallas
 // kernel takes with its packed16 flag (pallas_correct.py:266-269). Positions outside
@@ -37,6 +38,11 @@
 // - Layout: one warp per (entry, variant) for k <= 32, two for k <= 63;
 //   blocks of 256 threads hold 2 or 1 entries. score[v] is the popcount of
 //   the variant's warp ballots: no shared-memory atomics.
+// - Minimizer scheme: the entry's m-mer hashes are staged once (kmerax.cuh;
+//   MinimizerStage below), so a (v, j) thread takes its minimizer from at
+//   most 2 + m shared words where kmerax_block would extract and mix its
+//   k-m+1 m-mers: 4k(k-m+1) mix32 an entry (13,356 at k=63, m=11) become
+//   2(2k-m) + 8m (318).
 // The TPU kernel's 128-lane layout (lane v*k+j, the nvar/nslab split, the
 // LP=256 row cap) does not carry over.
 
@@ -47,6 +53,103 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSpanChunks = 4;           // 2k-1 <= 125 bases: 4 chunks of 32
+
+// The minimizer scheme's staging of one entry (kmerax.cuh: staged m-mer
+// hashes), in dynamic shared memory. The span's windows j = 0..k-1 take
+// their m-mers from span positions j..j+k-m; those at k-m..k-1 cover the
+// center and differ by variant, the rest do not. So the window's minimum
+// splits into three parts: the left positions j..k-m-1 (a suffix of
+// [0, k-m): suffix minima sufL), the right positions k..j+k-m (a prefix of
+// [k, 2k-m): prefix minima preR), both shared by the 4 variants, and the
+// center positions max(j, k-m)..min(j+k-m, k-1), read from the variant's
+// own m hashes (ctr). Strand s = 0 is F, 1 is R. The strands' arrays lie
+// 64 words apart, ctr's [s] halves 16 apart, so lanes of one variant on
+// either strand read distinct banks (or broadcast).
+struct MinimizerStage {
+    uint32_t sufL[2][64];                // k - m <= 62 positions
+    uint32_t preR[2][64];
+    uint32_t ctr[4][2][16];              // [variant][strand][i], m <= 15
+};
+
+// fill the entry's stage from its packed span P (center as code 0); warp
+// `we` of the entry: 0 the left suffix minima, 1 the right prefix minima,
+// 2 and 3 the 4m center hashes; every lane of those warps calls it
+static __device__ __forceinline__ void stage_entry(MinimizerStage* st,
+                                                   const uint32_t* P, int k,
+                                                   int m, int we, int lane) {
+    const int nl = k - m;                // left and right positions
+    if (we == 0) {                       // suffix minima, last chunk first
+        uint32_t cf = KMERAX_FULL_MASK, cr = KMERAX_FULL_MASK;
+        for (int c0 = (nl - 1) / 32 * 32; c0 >= 0; c0 -= 32) {
+            const int i = c0 + lane;
+            uint32_t f = KMERAX_FULL_MASK, r = KMERAX_FULL_MASK;
+            if (i < nl) {
+                const uint32_t x = kmerax_mmer(P, i, m);
+                f = kmerax_mix32(x);
+                r = kmerax_mix32(kmerax_mmer_rc(x, m));
+            }
+            // past the last lane a shuffle returns the lane's own value
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                f = min(f, __shfl_down_sync(KMERAX_FULL_MASK, f, o));
+                r = min(r, __shfl_down_sync(KMERAX_FULL_MASK, r, o));
+            }
+            f = min(f, cf);
+            r = min(r, cr);
+            cf = __shfl_sync(KMERAX_FULL_MASK, f, 0);
+            cr = __shfl_sync(KMERAX_FULL_MASK, r, 0);
+            if (i < nl) {
+                st->sufL[0][i] = f;
+                st->sufL[1][i] = r;
+            }
+        }
+    } else if (we == 1) {                // prefix minima from position k
+        uint32_t cf = KMERAX_FULL_MASK, cr = KMERAX_FULL_MASK;
+        for (int c0 = 0; c0 < nl; c0 += 32) {
+            const int i = c0 + lane;
+            uint32_t f = KMERAX_FULL_MASK, r = KMERAX_FULL_MASK;
+            if (i < nl) {
+                const uint32_t x = kmerax_mmer(P, k + i, m);
+                f = kmerax_mix32(x);
+                r = kmerax_mix32(kmerax_mmer_rc(x, m));
+            }
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                f = min(f, __shfl_up_sync(KMERAX_FULL_MASK, f, o));
+                r = min(r, __shfl_up_sync(KMERAX_FULL_MASK, r, o));
+            }
+            f = min(f, cf);
+            r = min(r, cr);
+            cf = __shfl_sync(KMERAX_FULL_MASK, f, 31);
+            cr = __shfl_sync(KMERAX_FULL_MASK, r, 31);
+            if (i < nl) {
+                st->preR[0][i] = f;
+                st->preR[1][i] = r;
+            }
+        }
+    } else if (we < 4) {                 // center m-mer i of variant v
+        const int t = 32 * (we - 2) + lane;
+        if (t < 4 * m) {
+            const int v = t / m, i = t % m;
+            // the center is base m-1-i of the m-mer at k-m+i: bits 2i
+            const uint32_t x = kmerax_mmer(P, nl + i, m) | ((uint32_t)v << (2 * i));
+            st->ctr[v][0][i] = kmerax_mix32(x);
+            st->ctr[v][1][i] = kmerax_mix32(kmerax_mmer_rc(x, m));
+        }
+    }
+}
+
+// the minimizer of window j of variant v on strand s (0: forward kept)
+static __device__ __forceinline__ uint32_t staged_minimizer(
+    const MinimizerStage* st, int k, int m, int j, int v, int s) {
+    uint32_t best = KMERAX_FULL_MASK;
+    if (j < k - m) best = st->sufL[s][j];
+    if (j >= m) best = min(best, st->preR[s][j - m]);
+    const int hi = min(j, m - 1);
+    for (int i = max(j - (k - m), 0); i <= hi; ++i)
+        best = min(best, st->ctr[v][s][i]);
+    return best;
+}
 
 // WPV warps per (entry, variant): 1 for k <= 32, 2 for k <= 63
 template <int W, int WPV, bool kMinimizer, typename Counter>
@@ -61,6 +164,7 @@ __global__ void correct_eval_scores_kernel(
     __shared__ uint32_t sP[kEntries][2 * kSpanChunks + 1];
     __shared__ uint32_t sN[kEntries][kSpanChunks];
     __shared__ int sCount[kWarps];
+    extern __shared__ MinimizerStage sMz[];  // kEntries, minimizer scheme
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int e = warp / kWarpsPerEntry;     // entry within the block
     const int we = warp % kWarpsPerEntry;    // warp within the entry
@@ -91,6 +195,10 @@ __global__ void correct_eval_scores_kernel(
         }
     }
     __syncthreads();
+    if constexpr (kMinimizer) {
+        if (live) stage_entry(&sMz[e], sP[e], k, m, we, lane);
+        __syncthreads();
+    }
 
     bool solid = false;
     if (live && j < k) {
@@ -103,13 +211,30 @@ __global__ void correct_eval_scores_kernel(
 #pragma unroll
             for (int wi = 0; wi < W; ++wi)
                 if (wi == (j >> 4)) words[wi] |= (uint32_t)v << (2 * (j & 15));
-            kmerax_canonicalize(words, W, k);
-            const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
-            const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = Counter::solid(
-                table, kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
-                                                   m, log2_buckets),
-                h2, d, t);
+            if constexpr (kMinimizer) {
+                const bool fwd = kmerax_canonical_strand(words, W, k);
+                const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_1);
+                const uint32_t h2 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_2);
+                solid = Counter::solid(
+                    table,
+                    kmerax_bucket_block(staged_minimizer(&sMz[e], k, m, j, v,
+                                                         fwd ? 0 : 1),
+                                        h1, block_mask, log2_buckets),
+                    h2, d, t);
+            } else {
+                kmerax_canonicalize(words, W, k);
+                const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_1);
+                const uint32_t h2 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_2);
+                solid = Counter::solid(
+                    table, kmerax_block<W, kMinimizer>(words, k, h1,
+                                                       block_mask, m,
+                                                       log2_buckets),
+                    h2, d, t);
+            }
         }
     }
     const int n = __popc(__ballot_sync(KMERAX_FULL_MASK, solid));
@@ -142,9 +267,11 @@ extern "C" int kmerax_correct_eval_scores(
         constexpr int W = decltype(w)::value;
         constexpr int WPV = W <= 2 ? 1 : 2;
         constexpr int kEntries = kWarps / (4 * WPV);
+        const size_t smem = decltype(mz)::value
+                            ? kEntries * sizeof(MinimizerStage) : 0;
         correct_eval_scores_kernel<W, WPV, decltype(mz)::value,
                                    decltype(layout)>
-            <<<(unsigned)((Q + kEntries - 1) / kEntries), kThreads, 0,
+            <<<(unsigned)((Q + kEntries - 1) / kEntries), kThreads, smem,
                stream>>>(bases, L, lengths, last_j, ent_r, ent_i, Q, table,
                          block_mask, d, m, log2_buckets, t, k, scores);
         return cudaGetLastError();

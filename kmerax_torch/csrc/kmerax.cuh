@@ -34,9 +34,11 @@ static __device__ __forceinline__ uint32_t kmerax_reverse_pairs(uint32_t w) {
     return (w << 16) | (w >> 16);
 }
 
-// words[0..W) little-endian forward k-mer -> canonical k-mer in place
-static __device__ __forceinline__ void kmerax_canonicalize(uint32_t* words, int W,
-                                                    int k) {
+// words[0..W) little-endian forward k-mer -> canonical k-mer in place;
+// true where the forward strand was kept (fwd <= its reverse complement;
+// for odd k the two never tie)
+static __device__ __forceinline__ bool kmerax_canonical_strand(
+    uint32_t* words, int W, int k) {
     uint32_t rx[KMERAX_MAX_WORDS], rc[KMERAX_MAX_WORDS];
     for (int i = 0; i < W; ++i)
         rx[i] = kmerax_reverse_pairs(~words[W - 1 - i]);
@@ -51,8 +53,15 @@ static __device__ __forceinline__ void kmerax_canonicalize(uint32_t* words, int 
         lt = lt || (eq && words[i] < rc[i]);
         eq = eq && words[i] == rc[i];
     }
-    if (!(lt || eq))
+    const bool fwd = lt || eq;
+    if (!fwd)
         for (int i = 0; i < W; ++i) words[i] = rc[i];
+    return fwd;
+}
+
+static __device__ __forceinline__ void kmerax_canonicalize(uint32_t* words, int W,
+                                                    int k) {
+    (void)kmerax_canonical_strand(words, W, k);
 }
 
 static __device__ __forceinline__ uint32_t kmerax_kmer_hash(const uint32_t* words,
@@ -62,12 +71,24 @@ static __device__ __forceinline__ uint32_t kmerax_kmer_hash(const uint32_t* word
     return h;
 }
 
-// the 128-counter block row of a canonical k-mer (K1-K3). Hash scheme
-// (DESIGN.md §5a): the low bits of h1 under block_mask. Minimizer scheme
-// (DESIGN.md §4): the bucket, the minimizer (the least kmerax_mix32 over the
-// k-m+1 m-mers of 2m bits, core/minimizer.py) modulo 2^log2_buckets, above
-// the low log2(blocks) - log2_buckets bits of h1. The scheme is a template
-// parameter, so the hash instantiation holds no minimizer code.
+// the minimizer scheme's block row (DESIGN.md §4): the bucket, the
+// minimizer modulo 2^log2_buckets, above the low log2(blocks) -
+// log2_buckets bits of h1. The one place this bit layout is written.
+static __device__ __forceinline__ uint32_t kmerax_bucket_block(
+    uint32_t minimizer, uint32_t h1, uint32_t block_mask, int log2_buckets) {
+    const int seg_bits = __popc(block_mask) - log2_buckets;
+    const uint32_t bucket = minimizer & ((1u << log2_buckets) - 1u);
+    return (bucket << seg_bits) | (h1 & (block_mask >> log2_buckets));
+}
+
+// the 128-counter block row of a canonical k-mer (K1r, K2). Hash scheme
+// (DESIGN.md §5a): the low bits of h1 under block_mask. Minimizer scheme:
+// kmerax_bucket_block of the minimizer, the least kmerax_mix32 over the
+// k-m+1 m-mers of 2m bits of the canonical words (core/minimizer.py),
+// each extracted and mixed here. The scheme is a template parameter, so
+// the hash instantiation holds no minimizer code. K1 and K3 take the
+// minimizer from m-mer hashes staged once a read or entry instead
+// (kmerax_mmer below).
 template <int W, bool kMinimizer>
 static __device__ __forceinline__ uint32_t kmerax_block(
     const uint32_t* words, int k, uint32_t h1, uint32_t block_mask, int m,
@@ -89,9 +110,7 @@ static __device__ __forceinline__ uint32_t kmerax_block(
             const uint32_t val = sb ? ((lo >> sb) | (hi << (32 - sb))) : lo;
             best = min(best, kmerax_mix32(val & mmask));
         }
-        const int seg_bits = __popc(block_mask) - log2_buckets;
-        const uint32_t bucket = best & ((1u << log2_buckets) - 1u);
-        return (bucket << seg_bits) | (h1 & (block_mask >> log2_buckets));
+        return kmerax_bucket_block(best, h1, block_mask, log2_buckets);
     }
 }
 
@@ -313,4 +332,30 @@ static __device__ __forceinline__ bool kmerax_span_clear(const uint32_t* N,
         if (N[w] & m) return false;
     }
     return true;
+}
+
+// ---- staged m-mer hashes (K1, K3 under the minimizer scheme) -------------
+//
+// The minimizer of the canonical k-mer starting at span position j is the
+// least F[j .. j+k-m] if the canonical form is the forward strand, else the
+// least R[j .. j+k-m], where F[p] = mix32(forward m-mer at p) and R[p] =
+// mix32(its reverse complement): the m-mers of revcomp(x) are the reverse
+// complements of x's m-mers in reverse order, and a minimum ignores order.
+// So F and R are computed once per position of a packed span and staged in
+// shared memory, where kmerax_block recomputes all k-m+1 m-mers of every
+// k-mer. An m-mer holding an N lies only in invalid windows: its F and R
+// are garbage and never read.
+
+// the 2m-bit m-mer at position p of a packed span, read big-endian as
+// kmerax_window_words reads a word (P must hold one word past it)
+static __device__ __forceinline__ uint32_t kmerax_mmer(const uint32_t* P,
+                                                       int p, int m) {
+    const uint32_t x = __funnelshift_l(P[(p >> 4) + 1], P[p >> 4],
+                                       2 * (p & 15));
+    return x >> (32 - 2 * m);
+}
+
+// the reverse complement of a 2m-bit m-mer
+static __device__ __forceinline__ uint32_t kmerax_mmer_rc(uint32_t x, int m) {
+    return kmerax_reverse_pairs(~x) >> (32 - 2 * m);
 }

@@ -54,6 +54,7 @@ if TYPE_CHECKING:
 _CHUNK = 1 << 18                    # k-mers per one-hot slab (plain insert)
 _WARPS = 8                          # reads per K1 and K2 block (csrc/bloom.cu)
 _SMEM_LIMIT = 48 * 1024             # their shared memory without opt-in
+_SMEM_OPT_IN = 227 * 1024           # a block's most, opted in (H100)
 _K1R_THREADS = 256                  # threads per K1r block (bloom.cu)
 _K1R_BLOCKS = 1024                  # K1r blocks to aim for: ~8 an SM
 _K1R_STATUS: dict = {}              # (device, stream) -> (status, epoch)
@@ -169,10 +170,24 @@ def _check_batch(table, bases, dtype, params):
                          f"the kernels take")
 
 
+def _insert_smem_bytes(L: int, params: BloomParams) -> int:
+    """K1's shared memory a block (csrc/bloom.cu::insert_smem_bytes): each
+    warp's packed read and, under the minimizer scheme, its staged m-mer
+    hashes, F and R for the L-m+1 positions, each rounded up to 32 words
+    (plus 4 bytes of the block's valid count)."""
+    words = 3 * -(-L // 32) + 1
+    if params.bucket_scheme == "minimizer":
+        words += 2 * (-(-(L - params.minimizer_m + 1) // 32) * 32)
+    return _WARPS * words * 4 + 4
+
+
 def _check_insert(table, bases, params, pending, off):
     _check_batch(table, bases, torch.int8, params)
     dev = table.device
     B, L = bases.shape
+    if dev.type == "cuda" and _insert_smem_bytes(L, params) > _SMEM_OPT_IN:
+        raise ValueError(f"read length {L} needs more shared memory than "
+                         f"K1 stages under the minimizer scheme")
     if pending is not None:
         cuda.require(pending, "pending", torch.int32, dev)
         rows = B * (L - params.k + 1)

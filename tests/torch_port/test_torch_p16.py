@@ -296,6 +296,60 @@ def test_checkpoints_cross_read(golden, tmp_path):
                               host_form=False)
 
 
+@pytest.fixture(scope="module")
+def spectra(golden):
+    """The port's `count` checkpoints of the golden reads: "i32" counted
+    under the CLI's default config ("auto", i32 off a TPU), "p16" under the
+    p16 TOML; and an i32 TOML."""
+    d = golden["dir"]
+    i32_toml = d / "i32.toml"
+    i32_toml.write_text('bloom_counter = "i32"\n')
+    out = {"i32_toml": str(i32_toml)}
+    for counter, extra in (("i32", []), ("p16", ["--config",
+                                                 golden["toml"]])):
+        out[counter] = str(d / f"spec_{counter}")
+        main(["count", "--in", golden["fq"], "--out", out[counter], *extra,
+              *ARGS, "--device", "cpu"])
+    return out
+
+
+@pytest.mark.parametrize("spec,toml,names", [
+    ("i32", "toml", "the i32 layout.*bloom_counter='p16'"),
+    ("p16", "i32_toml", "the p16 layout.*bloom_counter='i32'")])
+def test_explicit_counter_against_spectrum_raises(golden, spectra, tmp_path,
+                                                  spec, toml, names):
+    """`correct --spectrum` and `assemble --spectrum` with a config that
+    names the other counter layout than the saved table's raise, naming
+    both (the JAX CLI would probe the words in the config's layout and
+    write other bytes)."""
+    conf = golden["toml"] if toml == "toml" else spectra[toml]
+    for cmd, out in (("correct", "c.fq"), ("assemble", "a.fa")):
+        with pytest.raises(ValueError, match=names):
+            main([cmd, "--in", golden["fq"], "--spectrum", spectra[spec],
+                  "--out", str(tmp_path / out), "--config", conf, *ARGS,
+                  "--device", "cpu"])
+    assert not (tmp_path / "c.fq").exists()
+
+
+def test_auto_on_p16_spectrum_matches_explicit_p16(golden, spectra,
+                                                   tmp_path):
+    """`correct --spectrum` on a p16 checkpoint under the CLI's "auto"
+    probes the p16 words: the bytes that both packages write with
+    `--config p16.toml` on the same checkpoint (the golden p16 pipeline's),
+    where the JAX CLI's "auto" (i32 off a TPU) would read the packed words
+    as int32 counters."""
+    want = (golden["dir"] / "j_hash.fq").read_bytes()
+    jres, tres = run_clis(["correct", "--in", golden["fq"], "--spectrum",
+                           spectra["p16"], "--out",
+                           str(tmp_path / "{pkg}_p16.fq"), "--config",
+                           golden["toml"], *ARGS])
+    assert tres == jres
+    main(["correct", "--in", golden["fq"], "--spectrum", spectra["p16"],
+          "--out", str(tmp_path / "t_auto.fq"), *ARGS, "--device", "cpu"])
+    for name in ("j_p16.fq", "t_p16.fq", "t_auto.fq"):
+        assert (tmp_path / name).read_bytes() == want, name
+
+
 def test_two_pass_p16_crash_resume(golden, tmp_path, monkeypatch):
     """(h) run_two_pass with p16 counters, crashed in assemble (after the
     count_k2 checkpoint) and resumed: the i32 run's FASTQ and FASTA bytes,

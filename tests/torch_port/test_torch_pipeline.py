@@ -68,7 +68,7 @@ def paired_fastq(tmp_path_factory):
     return [str(p1), str(p2)]
 
 
-@pytest.mark.parametrize("k", [25, 31, 63])
+@pytest.mark.parametrize("k", [15, 25, 31, 33, 63])
 def test_extensions_match_jax(k):
     w = (k + 15) // 16
     rng = np.random.default_rng(k)
@@ -113,6 +113,25 @@ def test_run_pipeline_matches_jax(golden_fastq, tmp_path):
     stages = [json.loads(ln)["stage"]
               for ln in (tmp_path / "m.jsonl").read_text().splitlines()]
     assert stages == ["count", "correct", "count", "assemble"]
+
+
+@pytest.mark.parametrize("scheme", ["hash", "minimizer"])
+@pytest.mark.parametrize("k", [15, 33])
+def test_run_pipeline_one_and_three_words_matches_jax(golden_fastq, tmp_path,
+                                                      k, scheme):
+    """run_pipeline at k = 15 (one 32-bit word a k-mer) and k = 33 (three)
+    under both bucket schemes: the JAX package's FASTQ and FASTA bytes."""
+    cfg = dict(CFG, k=k, bucket_scheme=scheme)
+    jres = j_run_pipeline(JConfig(**cfg), [golden_fastq],
+                          str(tmp_path / "j.fastq"), str(tmp_path / "j.fa"))
+    tres = run_pipeline(KmeraxConfig(**cfg), [golden_fastq],
+                        str(tmp_path / "t.fastq"), str(tmp_path / "t.fa"),
+                        device="cpu")
+    assert tres == jres
+    for ext in ("fastq", "fa"):
+        assert (tmp_path / f"t.{ext}").read_bytes() == \
+            (tmp_path / f"j.{ext}").read_bytes()
+    assert jres["edited_reads"] > 0 and jres["unitigs"] > 0
 
 
 def test_cli_paired_matches_jax(paired_fastq, tmp_path, capsys):
