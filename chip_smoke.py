@@ -36,11 +36,15 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      same rows sorted by block and grouped by 512 and 256 MiB region.
      K1, K2 and K3 on p16 counters (2^29 counters in 2^28 words) == their
      plain versions at k = 15, 25, 31, 33, 63 under both schemes, K1's words
-     unpacked == min(its i32 table, SAT16) on the same batch, and a batch
-     whose one read is inserted until its counters pass SAT16; each p16
-     kernel timed as its i32 row at k=31, and K1-K3 on i32 and p16 counters
-     at 2^24 and 2^29 counters in turns (whether a 32 MiB p16 table in the
-     50 MB L2 beats a 64 MiB i32 one).
+     unpacked == min(its i32 table, SAT16) on the same batch, a batch
+     whose one read is inserted until its counters pass SAT16, and a batch
+     inserted into 2^10 counters until they pass SAT16 inside a launch
+     (K1 p16's CASes meet on both halves of a word and retry), each launch
+     == plain; each p16 kernel timed as its i32 row at k=31, and K1-K3 on
+     i32 and p16 counters at 2^24 and 2^29 counters in turns (whether a
+     32 MiB p16 table in the 50 MB L2 beats a 64 MiB i32 one), K1's bound
+     and sector floor at both widths. K2's record keeps its times, bound
+     and floor at every timed k (`by_k`).
   3. small goldens: the port's pipeline on the card, under the hash and
      the minimizer bucket scheme, `correct --use-exact`, and `pipeline --k2
      63` must write corrected FASTQ and unitig FASTA bytes equal to the
@@ -102,9 +106,13 @@ Phase 4's count profiler window runs in a child process of its own
 (`python3 chip_smoke.py --child NAME ARG`, used by the script itself), as
 does phase 7's wire profile. `python3 chip_smoke.py --turns TREE...` runs
 no phase: it times K1-K3 and K1r in each checkout TREE in turn, each in a
-process of its own (`turns`), to compare two versions on one card. Each phase prints its wall, the script its
-total. Every failure raises. The last line is {"ok": true, "device":
-{...}}. Exits nonzero without printing a result where CUDA is absent.
+process of its own (`turns`, `_child_kernel_times`: K1, K2, K3 at k = 25,
+31, 63, K1 p16 at 2^24 and 2^29 counters, K1r), to compare two versions
+on one card. A profiler session that recorded fewer launches of a
+kernel than were made is repeated (`_kernel_ms`). Each phase prints its
+wall, the script its total. Every failure raises. The last line is
+{"ok": true, "device": {...}}. Exits nonzero without printing a result
+where CUDA is absent.
 """
 
 from __future__ import annotations
@@ -433,28 +441,43 @@ def _reads(rng, B, L, k, n_rate=0.003):
     return reads.astype(np.int32), lengths
 
 
+# host seconds a profiler session idles before and after its launches when
+# it is repeated: the profiler keeps only the device records that fall in
+# its window, which it opens and closes on a host clock
+_PROFILE_PADS = (0.05, 0.5, 2.0)
+
+
 def _kernel_ms(fn, kernel: str, launches: int = 50, warm: int = 3):
     """The device time per launch of the CUDA kernel whose name holds
     `kernel`, as torch.profiler records it over `launches` calls of fn:
-    the kernel's own time, whatever the host's pace; None where the
-    profiler shows no device time."""
+    the kernel's own time, whatever the host's pace. A session that
+    recorded fewer launches than were made is said and repeated, with the
+    launches framed by idle host time (`_PROFILE_PADS`); None where no
+    session recorded them all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    us = n = 0
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and kernel in e.key):
-            us += e.self_device_time_total
-            n += e.count
-    return us / n * 1e-3 if n else None
+    for pad in (0.0, *_PROFILE_PADS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        us = n = 0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and kernel in e.key):
+                us += e.self_device_time_total
+                n += e.count
+        if n >= launches:
+            return us / n * 1e-3
+        say(f"profiler: {kernel}: the session (idle {pad} s before and "
+            f"after) recorded {n} of its {launches} launches")
+    return None
 
 
 def _timed(fn, plain, kernel: str, plain_calls: int = 10) -> dict:
@@ -555,7 +578,8 @@ def _check_p16(rng, device, index_add_ms):
             else:
                 recs[i] = r
     recs[0]["max_abs_err"] = max(recs[0]["max_abs_err"],
-                                 _p16_saturation(device))
+                                 _p16_saturation(device),
+                                 _p16_contention(device))
     recs[0]["index_add_i32_ms"] = index_add_ms
     num(f"phase2 K1 bloom_insert_p16: library none (no one PyTorch call "
         f"computes a saturating halfword add); for reference, the i32 "
@@ -700,6 +724,79 @@ def _p16_saturation(device) -> int:
     return err
 
 
+def _p16_contention(device) -> int:
+    """K1 p16 where its CASes meet and retry: one 4096 x 160 batch (k=31)
+    inserted again and again into 2^10 counters (8 block rows in 4 word
+    rows), so that a warp step's probes hit both halves of one word and
+    k-mers with a repeated lane, until the counters pass SAT16 inside a
+    launch. After every launch K1 p16's words == its plain version's and,
+    unpacked, == min(K1 i32, SAT16). Returns the max abs difference (0)."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import canonical_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.spectrum.bloom import SAT16, make_table, unpack16
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_insert, bloom_insert_plain
+
+    rng = np.random.default_rng(SEED + 17)
+    B, L, k, lw = K_READS, K_LEN, 31, 10
+    reads, _ = _reads(rng, B, L, k)
+    bases = torch.as_tensor(reads.astype(np.int8), device=device)
+    p, pi = _params(k, log2_width=lw, counter="p16"), _params(k,
+                                                              log2_width=lw)
+    # the collisions the batch holds: k-mers with a repeated lane, and
+    # warp steps (32 windows of a read) whose probes hit both halves of a
+    # word
+    words, valid = extract_kmers(bases, k)
+    blk, lp = blocks_lanepack(p, canonical_words(words, k)[0])
+    lanes = torch.stack([(lp.long() >> (7 * i)) & 127 for i in range(4)], -1)
+    rep = int(((lanes[..., :, None] == lanes[..., None, :]).sum((-1, -2))
+               > 4)[valid].sum())
+    step = (torch.arange(B, device=device)[:, None] * L
+            + torch.arange(valid.shape[1], device=device)[None, :] // 32)
+    word = ((blk.long() >> 1) * 128)[..., None] + lanes
+    key = (step[..., None] << lw) + word
+    half = (blk.long() & 1)[..., None].expand_as(key)
+    both = torch.unique(torch.unique(key[valid] * 2 + half[valid]) >> 1,
+                        return_counts=True)[1]
+    n_both = int((both == 2).sum())
+    del words, blk, lp, lanes, step, word, key, half
+    if not (rep > 0 and n_both > 0):
+        raise AssertionError(f"contention case is degenerate: {rep} k-mers "
+                             f"with a repeated lane, {n_both} words hit on "
+                             f"both halves in one warp step")
+    tk, tp, t32 = make_table(p, device), make_table(p, device), \
+        make_table(pi, device)
+    err, crossed, n = 0, 0, 0
+    while int(t32.min()) <= SAT16:
+        if n == 40:
+            raise AssertionError("contention case: counters below SAT16 "
+                                 "after 40 launches")
+        before = t32.clone()
+        bloom_insert(tk, bases, p)
+        bloom_insert_plain(tp, bases, p)
+        bloom_insert(t32, bases, pi)
+        torch.cuda.synchronize()
+        n += 1
+        err = max(err, int((tk - tp).abs().max()))
+        if not torch.equal(tk, tp):
+            raise AssertionError(f"K1 p16 differs from plain under "
+                                 f"contention at launch {n} (max {err})")
+        if not torch.equal(unpack16(tk), t32.clamp(max=SAT16)):
+            raise AssertionError(f"K1 p16 unpacked != min(K1 i32, SAT16) "
+                                 f"under contention at launch {n}")
+        crossed += int(((before < SAT16) & (t32 > SAT16)).sum())
+    if crossed == 0:
+        raise AssertionError("no counter passed SAT16 inside a launch")
+    say(f"phase2 K1 bloom_insert_p16 contention: {B} x {L} batch (k=31, "
+        f"{int(valid.sum())} k-mers, {rep} with a repeated lane, {n_both} "
+        f"words hit on both halves in one warp step) into 2^{lw} counters, "
+        f"{n} launches: words == plain and unpacked == min(i32, SAT16) "
+        f"after each; {crossed} counters passed SAT16 inside a launch")
+    return err
+
+
 def _by_width(rng, device) -> dict:
     """The L2 question: K1, K2 and K3 at k=31 (hash scheme) on i32 and on
     p16 counters at the CLI's 2^24 counters (a 64 MiB i32 table, above the
@@ -708,15 +805,17 @@ def _by_width(rng, device) -> dict:
     profiler session for the three), in turns i32, p16, p16, i32 on the same
     inputs: K1 inserts one batch into a zeroed table (with its pending
     rows), K2 and K3 then probe that table at t=3. Returns {"2^LW": {kernel:
-    {"i32": [ms, ms], "p16": [ms, ms]}}}."""
+    {"i32": [ms, ms], "p16": [ms, ms]}}}, K1's with "bound": {layout:
+    {bound_ms, bound_by, sector_floor_ms}} at that width."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from kmerax_torch.core.codec import num_words
+    from kmerax_torch.core.codec import canonical_words, num_words
+    from kmerax_torch.core.kmers import extract_kmers
     from kmerax_torch.ops.correct_kernels import correct_eval_scores
     from kmerax_torch.spectrum.bloom import make_table
-    from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
-        bloom_query_solid
+    from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
+        bloom_insert, bloom_query_solid
     from kmerax_torch.spectrum.exact import sentinel_rows
 
     B, L, k, Q, t = K_READS, K_LEN, 31, 4 * K_READS, 3
@@ -734,13 +833,31 @@ def _by_width(rng, device) -> dict:
                           device=device),
           torch.as_tensor(rng.integers(0, L, Q).astype(np.int32),
                           device=device))
-    pending = sentinel_rows(B * (L - k + 1), num_words(k), device)
+    W, rows = num_words(k), B * (L - k + 1)
+    pending = sentinel_rows(rows, W, device)
+    words, valid = extract_kmers(bases8, k)
+    canon, _ = canonical_words(words, k)
+    n_valid, valid = int(valid.sum()), valid.reshape(-1)
+    del words
     names = {"bloom_insert": "bloom_insert_kernel",
              "bloom_query_solid": "bloom_query_solid_kernel",
              "correct_eval_scores": "correct_eval_scores_kernel"}
     out = {}
     for lw in (24, K_LOG2_WIDTH):
         res = {n: {"i32": [], "p16": []} for n in names}
+        # K1's bound and sector floor at this width, each layout
+        blk, lp = blocks_lanepack(_params(k, "hash", lw), canon)
+        lanes, sectors = _probe_traffic(None, blk.reshape(-1),
+                                        lp.reshape(-1), valid, 4)
+        del blk, lp
+        io_bytes = B * L + 4 * W * rows + 8
+        res["bloom_insert"]["bound"] = {}
+        for counter, cb in _COUNTER_BYTES.items():
+            bound, by = _bound(io_bytes + 2 * cb * lanes,
+                               _kmer_ops(W, rows, n_valid, lanes))
+            res["bloom_insert"]["bound"][counter] = dict(
+                bound_ms=bound, bound_by=by, sector_floor_ms=(
+                    io_bytes + 2 * SECTOR * sectors) / HBM_BYTES_PER_S * 1e3)
         for counter in ("i32", "p16", "p16", "i32"):
             p = _params(k, "hash", lw, counter)
             table = make_table(p, device)
@@ -772,7 +889,11 @@ def _by_width(rng, device) -> dict:
         for name, v in res.items():
             num(f"phase2 {name} at 2^{lw} counters (k=31, hash scheme), "
                 f"its own device ms per launch (profiler), turns i32, p16, "
-                f"p16, i32: i32 {v['i32']}, p16 {v['p16']}")
+                f"p16, i32: i32 {v['i32']}, p16 {v['p16']}"
+                + "".join(f"; {c} bound {b['bound_ms']:.4f} ms "
+                          f"({b['bound_by']}), sector floor "
+                          f"{b['sector_floor_ms']:.4f} ms"
+                          for c, b in v.get("bound", {}).items()))
     return out
 
 
@@ -1135,7 +1256,7 @@ def _check_k2(rng, tk, device, ks=K_CHECKED, real=None,
     whose second half is fresh, at t=3; and first, when `real` holds the
     arguments of a K2 call on the main path, on those; addressed under the
     bucket `scheme`. Exact. Returns the record of that call, else of
-    k=31."""
+    k=31, with each timed k's times, bound and floor (`by_k`)."""
     import numpy as np
     import torch
     from kmerax_torch.core.codec import canonical_words
@@ -1167,7 +1288,7 @@ def _check_k2(rng, tk, device, ks=K_CHECKED, real=None,
                    torch.as_tensor(reads, device=device),
                    torch.as_tensor(lengths - k, device=device))
 
-    rec, err_max = None, 0
+    rec, err_max, by_k = None, 0, {}
     for tag, pk, t, bases, last_j in cases():
         k, W = pk.k, (pk.k + 15) // 16
         sk = bloom_query_solid(tk, bases, last_j, pk, t)
@@ -1213,11 +1334,20 @@ def _check_k2(rng, tk, device, ks=K_CHECKED, real=None,
                    f"{int(live.sum())} valid, {n_solid} solid at t={t}; "
                    f"{lanes} counter lanes read in {sectors} sectors; "
                    f"{mmers} (m-mer, strand) pairs mixed", r)
+        if real is None:
+            by_k[k] = {key: r[key] for key in ("kernel_ms", "ms", "bound_ms",
+                                               "bound_by", "sector_floor_ms")}
         if rec is None or (k == 31 and real is None):
             rec = r
     if rec is None:                   # no case timed
         return {"max_abs_err": err_max}
     rec["max_abs_err"] = err_max
+    if by_k:
+        rec["by_k"] = by_k
+        num(f"{phase} K2 {name}, {scheme} scheme, by k: " + "; ".join(
+            f"k={k} kernel {v['kernel_ms']} ms, bound {v['bound_ms']:.4f} "
+            f"({v['bound_by']}), floor {v['sector_floor_ms']:.4f}"
+            for k, v in by_k.items()))
     return rec
 
 
@@ -2346,11 +2476,14 @@ def _child_wire(arg) -> dict:
 def _child_kernel_times(arg) -> dict:
     """Each kernel's own device ms per launch (profiler, 50 launches after
     3) in the checkout `arg["tree"]`, whose kmerax_torch this process
-    imports and builds: K1 (with its pending rows) and K3 (16,384 entries,
-    t=3, on the table K1's batch filled three times) at k in K_TIMED, K2
-    (t=3) and K1r (the batch's k-mers routed to one shard) at k=31; under
-    both bucket schemes, on i32 counters, on phase 2's shapes drawn from
-    one seed a k, so that every checkout times the same work."""
+    imports and builds: K1 (with its pending rows), K2 (t=3) and K3
+    (16,384 entries, t=3), both on the table K1's batch filled three
+    times, at k in K_TIMED, and K1r (the batch's k-mers routed to one
+    shard) at k=31, on 2^K_LOG2_WIDTH i32 counters; K1 at k=31 also on
+    i32 and p16 counters at 2^24 and on p16 at 2^K_LOG2_WIDTH (keys "K1
+    SCHEME k=31 2^LW LAYOUT"); under both bucket schemes, on phase 2's
+    shapes drawn from one seed a k, so that every checkout times the same
+    work."""
     sys.path.insert(0, os.path.abspath(arg["tree"]))
     import numpy as np
     import torch
@@ -2380,6 +2513,15 @@ def _child_kernel_times(arg) -> dict:
             out[f"K1 {scheme} k={k}"] = _kernel_ms(
                 lambda: bloom_insert(table, bases8, p, pending, 0),
                 "bloom_insert_kernel")
+            if k == 31:                 # the layouts at both widths
+                for lw, counter in ((24, "i32"), (24, "p16"),
+                                    (K_LOG2_WIDTH, "p16")):
+                    pw = _params(k, scheme, lw, counter)
+                    tw = make_table(pw, dev)
+                    out[f"K1 {scheme} k={k} 2^{lw} {counter}"] = _kernel_ms(
+                        lambda: bloom_insert(tw, bases8, pw, pending, 0),
+                        "bloom_insert_kernel")
+                    del tw
             del pending
             _fill3(table, p, reads)
             bases = torch.as_tensor(reads, device=dev)
@@ -2394,10 +2536,10 @@ def _child_kernel_times(arg) -> dict:
             out[f"K3 {scheme} k={k}"] = _kernel_ms(
                 lambda: correct_eval_scores(p, table, 3, *args),
                 "correct_eval_scores_kernel")
+            out[f"K2 {scheme} k={k}"] = _kernel_ms(
+                lambda: bloom_query_solid(table, bases, lens - k, p, 3),
+                "bloom_query_solid_kernel")
             if k == 31:
-                out[f"K2 {scheme} k={k}"] = _kernel_ms(
-                    lambda: bloom_query_solid(table, bases, lens - k, p, 3),
-                    "bloom_query_solid_kernel")
                 words, valid = extract_kmers(bases8, k)
                 canon, _ = canonical_words(words, k)
                 sp = ShardedParams(p, 1)

@@ -14,17 +14,18 @@
 // Both take the counter layout as a template parameter (kmerax.cuh): i32,
 // or p16, the Pallas kernels' `packed16` branches (pallas_bloom.py:97-103,
 // a saturating halfword add; :232-235, the halfword read), two 16-bit
-// counters a word, so the table is half the bytes. K1's p16 add is a CAS
-// loop a counter, after the warp's lanes that hit one counter are grouped
-// (CounterP16::add, with the argument for its result); K2's p16 probe
-// reads the halfword.
+// counters a word, so the table is half the bytes. K1's p16 add groups the
+// warp's probes that hit one counter, then raises each by CAS, all CASes of
+// a step in flight together (CounterP16::add, with the argument for its
+// result); K2's p16 probe reads the halfword.
 //
 // Addressing (DESIGN.md §5): every k-mer owns one 128-counter block row of
 // the int32 table and d <= 4 lanes in it, 7 bits each of its second hash.
 // The row comes from kmerax_block (kmerax.cuh) under the bucket scheme, a
 // template parameter: the hash scheme's low bits of h1, or the minimizer
-// scheme's bucket above them (K2: k-m+1 more mix32 per k-mer; K1: the
-// least of k-m+1 m-mer hashes its warp staged once for the read, below).
+// scheme's bucket above them: in K1 and K2 the least of the k-m+1 m-mer
+// hashes the warp staged once for the read (below); K1r, whose rows have no
+// read, mixes k-m+1 m-mers a k-mer (kmerax_block<W, true>).
 // K1 adds +1 per probe (a repeated lane gets +2); K2 reports whether every
 // probed lane is >= t. Invalid k-mers add nothing and report 0.
 //
@@ -87,7 +88,8 @@
 // still lie in one 512-byte word row), so its floor is K1's and K2's
 // above; at the CLI's 2^24 counters a p16 table (32 MiB) fits the L2 and
 // an i32 one (64 MiB) does not. K1's p16 add reads the word before its
-// CAS: two trips to the L2 a lane where the i32 RED takes one.
+// CAS: a warp step waits on two trips to the L2 (all its reads, then all
+// its CASes) where the i32 REDs wait on none.
 
 #include "kmerax.cuh"
 
@@ -113,8 +115,9 @@ static __device__ __forceinline__ void pack_read(uint32_t* P, uint32_t* N,
     __syncwarp();
 }
 
-// K1 under the minimizer scheme: the warp stages its read's m-mer hashes
-// (kmerax.cuh) once, after packing it. Each of the read's L-m+1 positions
+// K1 and K2 under the minimizer scheme: the warp stages its read's m-mer
+// hashes (kmerax.cuh) once, after packing it (K2: only those of the windows
+// it probes, j <= last_j). Each of the read's L-m+1 positions
 // gets F (forward m-mer) and R (its reverse complement) in two arrays
 // whose bases lie a multiple of 32 words apart, so that the 32 lanes of a
 // window step, each on its own strand, read 32 distinct banks. A window's
@@ -243,6 +246,16 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
     uint32_t* N = P + 2 * nch + 1;
     pack_read(P, N, bases + r * L, L, lane);
     const int nk = L - k + 1;
+    [[maybe_unused]] uint32_t* S = nullptr;
+    [[maybe_unused]] int stride = 0;
+    if constexpr (kMinimizer) {
+        // K1's staging, of the m-mers the probed windows j <= last_j hold
+        // only: positions p < min(L, last_j + k) - m + 1, none if last_j < 0
+        stride = mmer_stride(L, m);
+        S = smem + kWarps * (3 * nch + 1) + warp * 2 * stride;
+        stage_mmers(P, S, stride, lj < 0 ? 0 : min(L, lj + k) - m + 1, m,
+                    lane);
+    }
     uint8_t* orow = out + r * nk;
     for (int j0 = 0; j0 < nk; j0 += 32) {
         const int j = j0 + lane;
@@ -250,13 +263,30 @@ __global__ void bloom_query_solid_kernel(const int32_t* __restrict__ table,
         if (j < nk && j <= lj && kmerax_span_clear(N, j, k)) {
             uint32_t words[W];
             kmerax_window_words<W>(P, j, k, words);
-            kmerax_canonicalize(words, W, k);
-            const uint32_t h1 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_1);
-            const uint32_t h2 = kmerax_kmer_hash(words, W, KMERAX_HASH_SEED_2);
-            solid = Counter::solid(
-                table, kmerax_block<W, kMinimizer>(words, k, h1, block_mask,
-                                                   m, log2_buckets),
-                h2, d, t);
+            if constexpr (kMinimizer) {
+                const bool fwd = kmerax_canonical_strand(words, W, k);
+                const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_1);
+                const uint32_t h2 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_2);
+                solid = Counter::solid(
+                    table,
+                    kmerax_bucket_block(
+                        staged_minimizer(S, stride, j, k - m + 1, fwd), h1,
+                        block_mask, log2_buckets),
+                    h2, d, t);
+            } else {
+                kmerax_canonicalize(words, W, k);
+                const uint32_t h1 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_1);
+                const uint32_t h2 = kmerax_kmer_hash(words, W,
+                                                     KMERAX_HASH_SEED_2);
+                solid = Counter::solid(
+                    table, kmerax_block<W, kMinimizer>(words, k, h1,
+                                                       block_mask, m,
+                                                       log2_buckets),
+                    h2, d, t);
+            }
         }
         if (j < nk) orow[j] = solid;
     }
@@ -400,11 +430,11 @@ cudaError_t smem_bytes(int L, size_t* smem) {
     return *smem > 48 * 1024 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
-// K1's dynamic shared memory: smem_bytes(L) and, under the minimizer
-// scheme, each warp's staged m-mer hashes (10.5 KB a block at L = 160, m =
-// 11); above 48 KB the launch opts in to more, up to the card's limit a
-// block (227 KB on an H100: reads up to ~3,400 bases)
-size_t insert_smem_bytes(int L, int m) {
+// K1's and K2's dynamic shared memory: smem_bytes(L) and, under the
+// minimizer scheme, each warp's staged m-mer hashes (10.5 KB a block at L =
+// 160, m = 11); above 48 KB the launch opts in to more, up to the card's
+// limit a block (227 KB on an H100: reads up to ~3,400 bases)
+size_t staged_smem_bytes(int L, int m) {
     return (size_t)kWarps
            * (3 * ((L + 31) / 32) + 1 + (m ? 2 * mmer_stride(L, m) : 0))
            * sizeof(uint32_t);
@@ -421,7 +451,7 @@ extern "C" int kmerax_bloom_insert(int32_t* table, const int8_t* bases,
     if (B <= 0) return (int)cudaGetLastError();
     size_t smem;
     if (smem_bytes(L, &smem) != cudaSuccess) return (int)cudaErrorInvalidValue;
-    smem = insert_smem_bytes(L, m);
+    smem = staged_smem_bytes(L, m);
     uint32_t* pend = reinterpret_cast<uint32_t*>(pending);
     auto* nv = reinterpret_cast<unsigned long long*>(n_valid);
     const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
@@ -452,14 +482,22 @@ extern "C" int kmerax_bloom_query_solid(const int32_t* table,
     if (B <= 0) return (int)cudaGetLastError();
     size_t smem;
     if (smem_bytes(L, &smem) != cudaSuccess) return (int)cudaErrorInvalidValue;
+    smem = staged_smem_bytes(L, m);
     const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
     return (int)kmerax_dispatch_layout(k, m, p16, [&](auto w, auto mz,
                                                       auto layout) {
-        bloom_query_solid_kernel<decltype(w)::value, decltype(mz)::value,
-                                 decltype(layout)>
-            <<<grid, kThreads, smem, stream>>>(table, bases, B, L, k, last_j,
-                                               block_mask, d, m, log2_buckets,
-                                               t, out);
+        auto kernel = bloom_query_solid_kernel<decltype(w)::value,
+                                               decltype(mz)::value,
+                                               decltype(layout)>;
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem);
+            if (e != cudaSuccess) return e;
+        }
+        kernel<<<grid, kThreads, smem, stream>>>(table, bases, B, L, k,
+                                                 last_j, block_mask, d, m,
+                                                 log2_buckets, t, out);
         return cudaGetLastError();
     });
 }

@@ -81,14 +81,15 @@ static __device__ __forceinline__ uint32_t kmerax_bucket_block(
     return (bucket << seg_bits) | (h1 & (block_mask >> log2_buckets));
 }
 
-// the 128-counter block row of a canonical k-mer (K1r, K2). Hash scheme
-// (DESIGN.md §5a): the low bits of h1 under block_mask. Minimizer scheme:
-// kmerax_bucket_block of the minimizer, the least kmerax_mix32 over the
-// k-m+1 m-mers of 2m bits of the canonical words (core/minimizer.py),
-// each extracted and mixed here. The scheme is a template parameter, so
-// the hash instantiation holds no minimizer code. K1 and K3 take the
-// minimizer from m-mer hashes staged once a read or entry instead
-// (kmerax_mmer below).
+// the 128-counter block row of a canonical k-mer. Hash scheme (DESIGN.md
+// §5a, K1-K3 and K1r): the low bits of h1 under block_mask. Minimizer
+// scheme (K1r only): kmerax_bucket_block of the minimizer, the least
+// kmerax_mix32 over the k-m+1 m-mers of 2m bits of the canonical words
+// (core/minimizer.py), each extracted and mixed here: K1r's routed rows
+// have no read to stage. K1, K2 and K3 take the minimizer from m-mer
+// hashes staged once a read or entry instead (kmerax_mmer below). The
+// scheme is a template parameter, so the hash instantiation holds no
+// minimizer code.
 template <int W, bool kMinimizer>
 static __device__ __forceinline__ uint32_t kmerax_block(
     const uint32_t* words, int k, uint32_t h1, uint32_t block_mask, int m,
@@ -185,22 +186,31 @@ struct CounterI32 {
 struct CounterP16 {
     static constexpr bool kWarpAdd = true;    // add() by the whole warp
     // Insert, called by all 32 lanes of a warp, `live` where the lane has a
-    // k-mer: probe by probe, the lanes whose probe i hits the same counter
-    // (word and half; __match_any_sync) form a group, and its first lane
-    // raises that half from h to min(h + c, SAT16), c the group's size, by
-    // a CAS loop on the word: from the word read before (the d probes'
-    // reads are issued together, __ldcg: from the L2, never a stale L1
-    // line), stop if the half is at SAT16, else CAS the word to itself
-    // with that half raised; on failure retry from the word the CAS
-    // returned.
+    // k-mer, in three passes: (1) the words of its d probes are read, all
+    // issued at once (__ldcg: from the L2, never a stale L1 line); (2)
+    // grouping, before any atomic: the lanes whose k-mer has the same
+    // block and probe lanes (so the same d counters: equal k-mers, as in a
+    // low-complexity read) form a group (one 64-bit __match_any_sync)
+    // whose first lane leads it with c = the group's size a probe, a
+    // repeated probe lane folded into the first of its probes (+2c); (3)
+    // the leader raises each of its halves from h to min(h + c, SAT16) by
+    // CAS from the word it read, stopping where the half is at SAT16 (no
+    // atomic): all its CASes are issued before it waits on any, then the
+    // failed ones are issued again from the words they returned, until
+    // none is left. So a window step waits on two trips to memory (the
+    // reads, then the CASes) where one CAS loop a probe in turn waited on
+    // d + 1. Counters that the grouping does not see as one (other k-mers
+    // that share a word, or the two halves of one word) meet as CASes on
+    // one word: one lands, the others fail and retry, as below.
     // Why the result is min(initial + n, SAT16) for n adds, whatever the
     // order: the successful CASes on a word are totally ordered, and each
     // one replaced exactly the word it read, so by induction each half
     // holds min(initial + adds applied so far, SAT16) after every success
     // (the other half is written back unchanged, and no half ever leaves
     // [0, SAT16], so nothing carries from one half into the other); a
-    // group that finds its half at SAT16 may stop, since a counter never
-    // falls. This is the saturating sum `insert` computes a batch
+    // leader that finds its half at SAT16 may stop, since a counter never
+    // falls. The order in which CASes are issued or land plays no part.
+    // This is the saturating sum `insert` computes a batch
     // (bloom.py:143-156, min(sum, SAT16)), and min(min(a + n1, S) + n2, S)
     // = min(a + n1 + n2, S), so batch splits and orders agree too.
     // Why not an atomicAdd of 1 << 16(b & 1), undone by an atomicSub where
@@ -216,35 +226,65 @@ struct CounterP16 {
     static __device__ __forceinline__ void add(int32_t* table,
                                                uint32_t block, uint32_t h2,
                                                int d, bool live) {
-        unsigned int* row = reinterpret_cast<unsigned int*>(table)
-                            + (size_t)(block >> 1) * 128;
-        const int sh = 16 * (int)(block & 1u);
+        unsigned int* const words = reinterpret_cast<unsigned int*>(table);
         const int me = threadIdx.x & 31;
-        uint32_t w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            if (live && i < d) w[i] = __ldcg(row + ((h2 >> (7 * i)) & 127u));
+        const int sh = 16 * (int)(block & 1u);
+        // each probe's word index, the word read, its adds and the word
+        // its CAS returned, all initialised (left uninitialised, prev went
+        // to the stack and the add ran slower than the CAS loop a probe it
+        // replaces: PERF.md)
+        uint32_t word[4], old[4], c[4], prev[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            const uint32_t lane = (h2 >> (7 * i)) & 127u;
-            const bool on = live && i < d;
-            // word index << 1 | half: < 2^31 for 2^31 counters
-            const uint32_t key = on ? (((block >> 1) << 8) | (lane << 1)
-                                       | (block & 1u))
-                                    : KMERAX_FULL_MASK;
-            const unsigned peers = __match_any_sync(KMERAX_FULL_MASK, key);
-            if (!on || __ffs(peers) - 1 != me) continue;
-            const uint32_t c = __popc(peers);
-            uint32_t old = w[i];
-            for (;;) {
-                const uint32_t h = (old >> sh) & 0xFFFFu;
-                if (h >= KMERAX_SAT16) break;
-                const uint32_t nh = min(h + c, KMERAX_SAT16);
-                const uint32_t prev = atomicCAS(row + lane, old,
-                                                old + ((nh - h) << sh));
-                if (prev == old) break;
-                old = prev;
+            word[i] = (block >> 1) * 128u + ((h2 >> (7 * i)) & 127u);
+            old[i] = live && i < d ? __ldcg(words + word[i]) : 0u;
+            c[i] = 0;
+            prev[i] = old[i];
+        }
+        // block < 2^24, so a live id is never all ones
+        const unsigned long long id =
+            live ? (unsigned long long)block << 32
+                       | (h2 & ((1u << (7 * d)) - 1u))
+                 : ~0ull;
+        const unsigned peers = __match_any_sync(KMERAX_FULL_MASK, id);
+        uint32_t todo = 0;                       // bit i: probe i pending
+        if (live && __ffs(peers) - 1 == me) {
+            const uint32_t n = __popc(peers);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (i >= d) continue;
+                c[i] = n;
+                todo |= 1u << i;
+#pragma unroll
+                for (int p = 0; p < i; ++p)      // a repeated lane: +2n
+                    if ((todo >> p & 1u) && word[p] == word[i]) {
+                        c[p] += n;
+                        todo &= ~(1u << i);
+                        break;
+                    }
             }
+        }
+        // every pending CAS is issued from the word last seen before any
+        // result is looked at; the failed ones go again
+        while (todo) {
+            uint32_t sent = 0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (!(todo >> i & 1u)) continue;
+                const uint32_t h = (old[i] >> sh) & 0xFFFFu;
+                if (h >= KMERAX_SAT16) continue;
+                const uint32_t nh = min(h + c[i], KMERAX_SAT16);
+                prev[i] = atomicCAS(words + word[i], old[i],
+                                    old[i] + ((nh - h) << sh));
+                sent |= 1u << i;
+            }
+            todo = 0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                if ((sent >> i & 1u) && prev[i] != old[i]) {
+                    old[i] = prev[i];
+                    todo |= 1u << i;
+                }
         }
     }
     // the two-round probe of kmerax_probe_two_rounds on the halfwords
@@ -334,7 +374,7 @@ static __device__ __forceinline__ bool kmerax_span_clear(const uint32_t* N,
     return true;
 }
 
-// ---- staged m-mer hashes (K1, K3 under the minimizer scheme) -------------
+// ---- staged m-mer hashes (K1, K2, K3 under the minimizer scheme) ---------
 //
 // The minimizer of the canonical k-mer starting at span position j is the
 // least F[j .. j+k-m] if the canonical form is the forward strand, else the

@@ -170,24 +170,32 @@ def _check_batch(table, bases, dtype, params):
                          f"the kernels take")
 
 
-def _insert_smem_bytes(L: int, params: BloomParams) -> int:
-    """K1's shared memory a block (csrc/bloom.cu::insert_smem_bytes): each
-    warp's packed read and, under the minimizer scheme, its staged m-mer
-    hashes, F and R for the L-m+1 positions, each rounded up to 32 words
-    (plus 4 bytes of the block's valid count)."""
+def _staged_smem_bytes(L: int, params: BloomParams) -> int:
+    """K1's and K2's dynamic shared memory a block
+    (csrc/bloom.cu::staged_smem_bytes): each warp's packed read and, under
+    the minimizer scheme, its staged m-mer hashes, F and R for the L-m+1
+    positions, each rounded up to 32 words."""
     words = 3 * -(-L // 32) + 1
     if params.bucket_scheme == "minimizer":
         words += 2 * (-(-(L - params.minimizer_m + 1) // 32) * 32)
-    return _WARPS * words * 4 + 4
+    return _WARPS * words * 4
+
+
+def _check_staged(table, bases, params, kernel: str, static_bytes: int):
+    """On a card: the block's staging (plus `static_bytes` of the kernel's
+    own) within what a block may opt in to."""
+    L = bases.shape[1]
+    if table.device.type == "cuda" \
+            and _staged_smem_bytes(L, params) + static_bytes > _SMEM_OPT_IN:
+        raise ValueError(f"read length {L} needs more shared memory than "
+                         f"{kernel} stages under the minimizer scheme")
 
 
 def _check_insert(table, bases, params, pending, off):
     _check_batch(table, bases, torch.int8, params)
     dev = table.device
     B, L = bases.shape
-    if dev.type == "cuda" and _insert_smem_bytes(L, params) > _SMEM_OPT_IN:
-        raise ValueError(f"read length {L} needs more shared memory than "
-                         f"K1 stages under the minimizer scheme")
+    _check_staged(table, bases, params, "K1", 4)   # + the block's count
     if pending is not None:
         cuda.require(pending, "pending", torch.int32, dev)
         rows = B * (L - params.k + 1)
@@ -365,6 +373,7 @@ def bloom_query_solid(table: torch.Tensor, bases: torch.Tensor,
     lanes of its canonical k-mer is >= t (in the params' counter
     layout)."""
     _check_batch(table, bases, torch.int32, params)
+    _check_staged(table, bases, params, "K2", 0)
     cuda.require(last_j, "last_j", torch.int32, table.device,
                  (bases.shape[0],))
     if table.device.type == "cpu":

@@ -1,5 +1,5 @@
-"""A numpy emulation of how K1 and K3 take a k-mer's minimizer under the
-minimizer scheme from m-mer hashes staged once in shared memory
+"""A numpy emulation of how K1, K2 and K3 take a k-mer's minimizer under
+the minimizer scheme from m-mer hashes staged once in shared memory
 (csrc/kmerax.cuh: kmerax_mmer, kmerax_mmer_rc, kmerax_canonical_strand,
 kmerax_bucket_block; csrc/bloom.cu: stage_mmers, staged_minimizer;
 csrc/correct.cu: stage_entry, staged_minimizer), held against the JAX
@@ -9,7 +9,9 @@ words of the same k-mers.
 K1: one warp packs a read, computes F[p] = mix32(forward m-mer at p) and
 R[p] = mix32(its reverse complement) for its L-m+1 positions, and window
 j's minimizer is the least of F[j..j+k-m] if the canonical form kept the
-forward strand, else of R[j..j+k-m]. K3: per entry the 2k-1 span bases
+forward strand, else of R[j..j+k-m]. K2 does the same for the positions
+its probed windows (j <= last_j) hold only, and none for a read whose
+last_j < 0. K3: per entry the 2k-1 span bases
 (center as code 0), the left positions' suffix minima and the right
 positions' prefix minima by warp shuffle scans, and the 4m m-mers over the
 center restaged for each of the 4 center bases. Reads have Ns, ragged
@@ -147,6 +149,35 @@ def k1_minimizers(bases, k, m):
         block[:, j] = bucket_block(best[:, j],
                                    kmer_hash(canon[:, j], HASH_SEED_1))
     return canon, valid, best, block
+
+
+def k2_minimizers(bases, last_j, k, m):
+    """K2's windows under the minimizer scheme: (canonical words (B, nk,
+    W), probed (B, nk): valid and j <= last_j, the staged minimizer (B,
+    nk), block (B, nk)). The warp stages F and R of positions p <
+    min(L, last_j + k) - m + 1 only, none where last_j < 0; the positions
+    it leaves unstaged hold 0, the least hash, so that a probed window that
+    read one would take a minimizer of 0."""
+    B, L = bases.shape
+    P, N = pack_reads(bases)
+    F, R = k1_stage(P, L, m)
+    nm = np.where(last_j < 0, 0, np.minimum(L, last_j + k) - m + 1)
+    unstaged = np.arange(L - m + 1)[None, :] >= nm[:, None]
+    F, R = np.where(unstaged, 0, F), np.where(unstaged, 0, R)
+    nk, w = L - k + 1, k - m + 1
+    W = (k + 15) // 16
+    canon = np.empty((B, nk, W), np.uint64)
+    probed = np.empty((B, nk), bool)
+    best = np.empty((B, nk), np.uint64)
+    block = np.empty((B, nk), np.uint64)
+    for j in range(nk):
+        probed[:, j] = (j <= last_j) & span_clear(N, j, k)
+        canon[:, j], fwd = canonical_strand(window_words(P, j, k), k)
+        best[:, j] = np.where(fwd, F[:, j:j + w].min(axis=1),
+                              R[:, j:j + w].min(axis=1))
+        block[:, j] = bucket_block(best[:, j],
+                                   kmer_hash(canon[:, j], HASH_SEED_1))
+    return canon, probed, best, block, unstaged
 
 
 def k3_stage(P, k, m):
@@ -309,3 +340,43 @@ def test_k3_staged_minimizer_matches_jax(k, m):
     # windows before position 0 were there, and some windows are probed
     assert (c < 0).any() and 0 < ok.sum() < ok.size
     assert Q * 4 * k == ok.size
+
+
+@pytest.mark.parametrize("k,m", CASES)
+def test_k2_staged_minimizer_matches_jax(k, m):
+    """K2's staging of the m-mers its probed windows hold (j <= last_j;
+    reads shorter than k, whose last_j < 0, stage none) and the window
+    minimum by kept strand give the JAX package's canonical words,
+    minimizers, buckets and blocks at every window K2 probes, on reads with
+    Ns, ragged lengths and padding."""
+    rng = np.random.default_rng(300 + k + m)
+    reads, lengths = reads_with_ns(300 + k + m, 16, 130, k, n_rate=0.01)
+    short = np.array([1, 5, 9])
+    lengths[short] = rng.integers(0, k, short.size)
+    for i in short:
+        reads[i, lengths[i]:] = 4
+    last_j = lengths - k
+    last_j[[2, 6]] = [0, lengths[6] - k - 17]    # a cut before the end
+    canon, probed, best, block, unstaged = k2_minimizers(reads, last_j, k,
+                                                         m)
+    jw, jv = j_extract(jnp.asarray(reads), k)
+    jv = np.asarray(jv)
+    nk = reads.shape[1] - k + 1
+    want = jv & (np.arange(nk)[None, :] <= last_j[:, None])
+    np.testing.assert_array_equal(probed, want)
+    jc = j_canonical(jw, k)[0][want]
+    np.testing.assert_array_equal(canon[probed], np.asarray(jc))
+    mins, blocks = j_min_block(jc, k, m)
+    np.testing.assert_array_equal(best[probed], mins)
+    np.testing.assert_array_equal(block[probed], blocks)
+    np.testing.assert_array_equal(
+        best[probed] % np.uint64(1 << LB),
+        np.asarray(j_buckets(jc, k, m, 1 << LB)).astype(np.uint64))
+    # the cut: short reads stage and probe nothing; padded reads and those
+    # cut before the end stage less than L - m + 1 positions and leave
+    # valid windows unprobed; Ns leave windows before the cut unprobed
+    assert unstaged[short].all() and not probed[short].any()
+    assert unstaged[lengths < reads.shape[1]].any(axis=1).all()
+    assert unstaged[[2, 6]].any(axis=1).all() and (jv & ~want).any()
+    assert (~jv & (np.arange(nk)[None, :] <= last_j[:, None])).any()
+    assert len(np.unique(best[probed])) > 10
