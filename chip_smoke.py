@@ -60,11 +60,11 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      correct round, and K2 and K3 against their plain versions on the
      main path's own first calls (K3 also at its entry count).
   5. BASELINE config 3 (human chr21 PE150 30x, error rate 0.005, k=31,
-     correct + assemble) on a 3.0 Mb genome, through `pipeline --validate`
+     correct + assemble) on a 1.0 Mb genome, through `pipeline --validate`
      and then the `align` subcommand, with stage walls, launch counts,
      correction accuracy and the validate stats held to their bars.
   6. BASELINE config 5 (human WGS 30x PE150, two-pass k=31 -> k2=63,
-     correct + assemble, error 0.005) on a 2.0 Mb genome: `pipeline --k2
+     correct + assemble, error 0.005) on a 0.5 Mb genome: `pipeline --k2
      63` held to config 3's bars, a crash after the count_k2 checkpoint
      and its resume, byte-equal, then `correct --spectrum` and `assemble
      --spectrum` on the checkpoints, byte-equal, and `correct --use-exact`.
@@ -74,7 +74,7 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      --preset e2e` on the int8 and the 2-bit wire (walls), and in a child
      process each wire's copies and the count step's launches per batch
      under the profiler; BASELINE config 2 (S. cerevisiae PE100 80x, k=25)
-     through `bench --acceptance 2 --scale 10`, held to its accuracy bars;
+     through `bench --acceptance 2 --scale 5`, held to its accuracy bars;
      the same reads on p16 counters through `count --config c2_p16.toml`
      (traced with KMERAX_TRACE_DIR: the trace names K1's p16 kernel) and
      `correct --spectrum`, byte-equal to the i32 run, K1-K3 launched in
@@ -87,7 +87,14 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      on cuda must raise the JAX package's "mesh DxS needs N devices, have
      M"; a multi-rank mesh runs only where there are cards for it (with
      two cards or more, `count --mesh-bucket S` through the CLI, its
-     spectrum == run_count's; with one card a line says it did not run).
+     spectrum == run_count's; with one card a line says it did not run),
+     and `bench --preset e2e --mesh-bucket 2` on one card raises it before
+     any rank or preset runs. The e2e preset's stages
+     (bench/runners.e2e_stages) on its 65,536-read FASTQ here and in a
+     spawned rank of a one-rank NCCL mesh: K1-K3 launched in the rank, the
+     corrected FASTQ byte-equal, the rank's stage walls and `launch_s`
+     beside this process's; with two cards or more also `bench --preset
+     e2e --mesh-bucket S` on S ranks, byte-equal.
 
   8. the multi-host path: `pipeline --coordinator 127.0.0.1:P
      --num-procs 1 --process-id 0` (a `tcp://` rendezvous, one NCCL rank)
@@ -100,7 +107,9 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      one-device assembly of the same spectrum) and the sharded
      checkpoint's save and load, with each step's wall, each host's
      resident rows and the rows it received. A world of two NCCL ranks
-     needs two cards: a line says so.
+     needs two cards: a line says so. Every log line of the port on the
+     stderr of the multi-host `pipeline` reads `... [host0] ...`, and the
+     two host processes' lines carry [host0] and [host1].
 
 Phase 4's count profiler window runs in a child process of its own
 (`python3 chip_smoke.py --child NAME ARG`, used by the script itself), as
@@ -136,6 +145,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # for its 1,547,216 reads: distinct = G + n*150*0.01*31 = 76,587,196, so
 # exact_capacity = 2^ceil(log2(1.75 * distinct)) = 2^27 and the Bloom
 # table 2^ceil(log2(6 * distinct)) = 2^29 counters; batches 4096 x 160.
+# Config 1 is the main path and runs uncut: at 20x its correction
+# introduced 2 errors, against config 1's bar of none.
 C1_GENOME = 4_641_652
 C1_COVERAGE = 50
 C1_ERROR = 0.01
@@ -146,26 +157,30 @@ C1_CFG = dict(k=31, bloom_log2_width=29, exact_capacity=1 << 27,
 # temporaries, up to 4 bytes a base of one batch
 C1_PEAK_BYTES = 4_833_182_208
 C1_UNPACK_BYTES = 4 * 4096 * 160
-# BASELINE config 3 (acceptance.py CONFIGS[3]) on a 3,000,000 bp genome
+# BASELINE config 3 (acceptance.py CONFIGS[3]) on a 1,000,000 bp genome
 # (chr21 is 46,709,983 bp; the CPU record ACCEPTANCE_full_c3.json has
 # 6,000,000, at which the six phases took 1,206.4 s on an H100 80GB HBM3
-# at 700 W, this phase ~410 s of it: half the genome keeps the script
-# inside 20 minutes), PE150, 30x, error 0.005, k=31, 600,000 reads.
-# acceptance.py's rule: distinct = G + n*150*0.005*31 = 16,950,000, so
+# at 700 W, this phase ~410 s of it; at 3,000,000 bp it took 121.1 s of
+# a 1,009.7 s call on the same card, and the script, with phases 5-7 at
+# their earlier sizes, ran past 1,200 s on a slower host), PE150, 30x,
+# error 0.005, k=31, 200,000 reads. The tables keep the sizes acceptance.py's rule gives at
+# 3,000,000 bp: distinct = G + n*150*0.005*31 = 16,950,000, so
 # exact_capacity 2^25 and a 2^27-counter Bloom table.
-C3_GENOME = 3_000_000
+C3_GENOME = 1_000_000
 C3_FULL_GENOME = 46_709_983
 C3_COVERAGE = 30
 C3_ERROR = 0.005
 C3_CFG = dict(k=31, bloom_log2_width=27, exact_capacity=1 << 25,
               batch_reads=4096, max_read_len=160)
 # BASELINE config 5 (acceptance.py CONFIGS[5]: human WGS 30x PE150, k=31 ->
-# k2=63 two-pass correct + assemble, error 0.005) at the size of
-# ACCEPTANCE_full_c5.json: a 2,000,000 bp genome (the cut; the human
-# genome is 3.1 Gb), 30x, 400,000 reads. acceptance.py's rule: distinct =
-# G + n*150*0.005*31 = 11,300,000, so exact_capacity 2^25 and a
-# 2^27-counter Bloom table, for both passes.
-C5_GENOME = 2_000_000
+# k2=63 two-pass correct + assemble, error 0.005) at a quarter of the size
+# of ACCEPTANCE_full_c5.json: a 500,000 bp genome (the cut; the human
+# genome is 3.1 Gb; at 2,000,000 bp this phase took 230.3 s of the
+# 1,009.7 s call above), 30x, 100,000 reads. The tables keep the sizes
+# acceptance.py's rule gives at 2,000,000 bp: distinct = G +
+# n*150*0.005*31 = 11,300,000, so exact_capacity 2^25 and a 2^27-counter
+# Bloom table, for both passes.
+C5_GENOME = 500_000
 C5_COVERAGE = 30
 C5_ERROR = 0.005
 C5_CFG = dict(k=31, bloom_log2_width=27, exact_capacity=1 << 25,
@@ -2190,7 +2205,7 @@ def _same_bytes(a: str, b: str, what: str) -> None:
 
 def phase_config5(workdir: str):
     """BASELINE config 5 (two-pass k=31 -> k2=63, correct + assemble) on a
-    2.0 Mb genome: (a) `pipeline --k2 63` through the CLI, held to config
+    0.5 Mb genome: (a) `pipeline --k2 63` through the CLI, held to config
     3's bars; (b) run_two_pass with a workdir, crashed after the count_k2
     checkpoint and resumed, byte-equal to (a); (c) `correct --spectrum`
     and `assemble --spectrum` on (b)'s checkpoints, byte-equal to (a), and
@@ -2201,8 +2216,8 @@ def phase_config5(workdir: str):
     from kmerax_torch.utils import cuda
 
     t_phase = time.perf_counter()
-    say(f"phase6 CUT: genome {C5_GENOME} bp (the size of "
-        f"ACCEPTANCE_full_c5.json), not the human genome's 3.1 Gb")
+    say(f"phase6 CUT: genome {C5_GENOME} bp (a quarter of "
+        f"ACCEPTANCE_full_c5.json's), not the human genome's 3.1 Gb")
     paths, noisy, truth, seq_off = simulate_pairs(workdir, C5_GENOME,
                                                   C5_COVERAGE, C5_ERROR)
     n_reads = sum(len(b) for b in noisy)
@@ -2346,11 +2361,12 @@ BENCH_READS = 16384
 BENCH_CORRECT_READS = 8192
 E2E_READS = 65536
 # BASELINE config 2 (acceptance.py CONFIGS[2], S. cerevisiae PE100 80x,
-# k=25) at --scale 10: a 600,000 bp genome, 480,000 reads; acceptance.py's
-# rule gives distinct = 12,600,000, a 2^27-counter Bloom table (512 MiB)
-# and exact_capacity 2^25. (--scale 20, 960,000 reads, took 162 s of a
-# call whose seven phases projected past 1,200 s on a slow host.)
-C2_SCALE = "10"
+# k=25) at --scale 5: a 300,000 bp genome, 240,000 reads; acceptance.py's
+# rule gives distinct = 6,300,000, a 2^26-counter Bloom table (256 MiB)
+# and exact_capacity 2^24. (--scale 20, 960,000 reads, took 162 s of a
+# call whose seven phases projected past 1,200 s on a slow host; --scale
+# 10 ran in a script that passed 1,200 s on another.)
+C2_SCALE = "5"
 C2_FULL_GENOME = 12_157_105
 
 
@@ -2716,7 +2732,7 @@ def phase_bench(workdir: str, recs=None):
     `bench --preset e2e` with `--no-wire-pack`, then again on the 2-bit
     wire, and in a child process each wire's profiled e2e for its copies
     and the count step's launches per batch; (4) BASELINE config 2 through
-    `bench --acceptance 2 --scale 10`, held to its accuracy bars. Returns
+    `bench --acceptance 2 --scale 5`, held to its accuracy bars. Returns
     the launches of (1) and (4)."""
     import torch
     from kmerax_torch.utils import cuda
@@ -2756,6 +2772,7 @@ def phase_bench(workdir: str, recs=None):
     dflt = KmeraxConfig()         # the CLI's defaults, as `bench` runs
     _say_wire(_child("wire", {}), -(-E2E_READS // dflt.batch_reads),
               dflt.batch_reads, dflt.max_read_len)
+    runs.update(_mesh_e2e(workdir))
 
     say(f"phase7 CUT: config 2 at --scale {C2_SCALE}: genome "
         f"{int(60_000 * float(C2_SCALE))} bp, not S. cerevisiae's "
@@ -3036,12 +3053,77 @@ def _mesh_count(cfg, paths, want: dict, workdir: str) -> None:
         f"histogram and threshold equal run_count's")
 
 
+def _mesh_e2e(workdir: str) -> dict:
+    """The e2e preset's stages on a mesh (`runners.e2e_stages`, what
+    `bench_e2e` launches on D·S > 1 ranks or across hosts) on e2e's FASTQ
+    (E2E_READS reads, `runners.write_e2e_fastq`): (1) here, as `bench_e2e`
+    runs them on one device; (2) over a one-rank NCCL mesh (MeshSpec(1, 1),
+    launched explicitly): K1, K2 and K3 launched in the spawned rank, the
+    corrected FASTQ byte-equal to (1)'s, its walls and `launch_s` beside
+    (1)'s; (3) where the host has two cards or more, `bench --preset e2e
+    --mesh-bucket S` through the CLI on S NCCL ranks, and the stages on a
+    1 x S mesh byte-equal to (1). Returns the launches of (2) (path
+    "e2e_one_rank_mesh")."""
+    import torch
+    from kmerax_torch.bench.runners import e2e_stages, write_e2e_fastq
+    from kmerax_torch.config import KmeraxConfig
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.pipeline.run import restore_observed, with_observed
+    from kmerax_torch.utils import cuda
+
+    fq = os.path.join(workdir, "e2e.fastq")
+    write_e2e_fastq(fq, E2E_READS, READ_LEN)
+    outs = {n: os.path.join(workdir, f"e2e_{n}.fastq")
+            for n in ("one", "rank", "mesh")}
+    one = e2e_stages(KmeraxConfig(), fq, outs["one"], DEVICE)
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    walls, obs = dmesh.launch(dmesh.MeshSpec(1, 1), DEVICE, with_observed,
+                              e2e_stages, KmeraxConfig(), fq, outs["rank"],
+                              DEVICE)
+    launch_s = (time.perf_counter() - t0 - walls["count_wall_s"]
+                - walls["correct_wall_s"])
+    restore_observed(obs)
+    launches = dict(cuda.LAUNCHES)
+    _same_bytes(outs["rank"], outs["one"],
+                "phase7 e2e stages in a one-rank NCCL mesh")
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched by the e2e "
+                                 f"stages in a spawned rank")
+    num(f"phase7 e2e stages ({E2E_READS} reads, the e2e preset's FASTQ) in "
+        f"a spawned rank of a one-rank NCCL mesh: count "
+        f"{walls['count_wall_s']:.3f} s, correct "
+        f"{walls['correct_wall_s']:.3f} s, launch_s {launch_s:.3f} s; in "
+        f"this process: count {one['count_wall_s']:.3f} s, correct "
+        f"{one['correct_wall_s']:.3f} s; corrected FASTQ byte-equal; "
+        f"launches in the rank {launches}")
+    have = torch.cuda.device_count()
+    if have >= 2:
+        S = 1 << (min(have, 8).bit_length() - 1)
+        res, wall = _cli("phase7", workdir, [
+            "bench", "--preset", "e2e", "--mesh-bucket", str(S), "--device",
+            DEVICE])
+        dmesh.launch(dmesh.MeshSpec(1, S), DEVICE, e2e_stages,
+                     KmeraxConfig(mesh_bucket=S), fq, outs["mesh"], DEVICE)
+        _same_bytes(outs["mesh"], outs["one"],
+                    f"phase7 e2e stages on a 1 x {S} NCCL mesh")
+        num(f"phase7 `bench --preset e2e --mesh-bucket {S}` on {S} cards "
+            f"(NCCL): {res}, {wall:.2f} s; the stages on a 1 x {S} mesh "
+            f"wrote the one-device bytes")
+    return {"e2e_one_rank_mesh": launches}
+
+
 def _mesh_on_cuda() -> None:
     """A mesh of more ranks than the host's cards, on cuda, raises the JAX
     package's error before it starts a rank (no fall-back to gloo or the
-    CPU). A multi-rank mesh runs only where there are cards for it."""
+    CPU): `pipeline` on a 2 x 2 mesh, and `bench --preset e2e` on a 1 x 2
+    mesh where there is one card. A multi-rank mesh runs only where there
+    are cards for it."""
     import torch
     from kmerax_torch.cli import main as cli_main
+    from kmerax_torch.dist import mesh as dmesh
 
     have = torch.cuda.device_count()
     want = f"mesh 2x2 needs 4 devices, have {have}"
@@ -3059,6 +3141,28 @@ def _mesh_on_cuda() -> None:
     if have < 4 and raised != want:
         raise AssertionError(f"a 2 x 2 mesh on {have} card(s): {raised!r}, "
                              f"expected {want!r}")
+    if have < 2:
+        want2 = f"mesh 1x2 needs 2 devices, have {have}"
+        real_launch, started = dmesh.launch, []
+
+        def launch(*a, **kw):
+            started.append(a[0])
+            return real_launch(*a, **kw)
+        dmesh.launch = launch
+        try:
+            cli_main(["bench", "--preset", "e2e", "--mesh-bucket", "2",
+                      "--device", DEVICE])
+            raised2 = None
+        except ValueError as e:
+            raised2 = str(e)
+        finally:
+            dmesh.launch = real_launch
+        if raised2 != want2 or started:
+            raise AssertionError(f"bench --preset e2e on a 1 x 2 mesh on "
+                                 f"{have} card: {raised2!r} (expected "
+                                 f"{want2!r}), launches {started}")
+        say(f"phase7 mesh: `bench --preset e2e --mesh-bucket 2 --device "
+            f"{DEVICE}` raised {raised2!r} before any rank or preset ran")
     say(f"phase7 mesh: {have} card(s) here: `pipeline --mesh-data 2 "
         f"--mesh-bucket 2 --device {DEVICE}` raised {raised!r}; a mesh of "
         f"more than one rank was not run on the card (NCCL puts one rank "
@@ -3069,7 +3173,7 @@ def _mesh_on_cuda() -> None:
 
 # ---------------------------------------------------------------- phase 8
 
-# phase 8's cut: the first C8_PAIRS pairs of config 2's 240,000, so the
+# phase 8's cut: the first C8_PAIRS pairs of config 2's 120,000, so the
 # phase stays inside its 90 s (two pipelines, a count and two assemblies
 # on it, each multi-host CLI call starting a rank process): 60,000 pairs
 # took 94.8 s on an NVIDIA H100 80GB HBM3 at 700 W
@@ -3197,7 +3301,13 @@ def phase_multihost(workdir: str):
         hosts = ["--coordinator", f"127.0.0.1:{port}", "--num-procs", "1",
                  "--process-id", "0"]
         one, w_one, _, f_one = pipeline("one", [])
-        res, w_mh, launches, f_mh = pipeline("mh", hosts)
+        err = os.path.join(workdir, "mh.stderr")
+        with _stderr_to(err):
+            res, w_mh, launches, f_mh = pipeline("mh", hosts)
+        tags = _host_tags(err, "phase8 multi-host pipeline")
+        if tags != {0}:
+            raise AssertionError(f"phase8 multi-host pipeline: log lines "
+                                 f"tagged hosts {sorted(tags)}, not [host0]")
         runs["config2_prefix_multihost_pipeline"] = launches
         if res != one:
             raise AssertionError(f"multi-host pipeline {res} != {one}")
@@ -3210,7 +3320,8 @@ def phase_multihost(workdir: str):
         num(f"phase8 `pipeline` over a tcp:// rendezvous at 127.0.0.1:"
             f"{port} (one NCCL rank): {res}; FASTQ and FASTA byte-equal to "
             f"the one-device run's; wall {w_mh:.2f} s with the rank's "
-            f"start, one-device {w_one:.2f} s; launches {launches}")
+            f"start, one-device {w_one:.2f} s; launches {launches}; every "
+            f"log line on its stderr tagged [host0]")
 
         spec = os.path.join(workdir, "spec")
         port = _free_port()
@@ -3250,9 +3361,16 @@ def phase_multihost(workdir: str):
         write_fasta(ref_fa, seqs)
         w_ref = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dmesh.launch(dmesh.MeshSpec(2, 1), "cpu", _phase8_host, spec_npz,
-                     c2["cfg"], t, workdir, n_hosts=2, host=None)
+        err = os.path.join(workdir, "hosts.stderr")
+        with _stderr_to(err):
+            dmesh.launch(dmesh.MeshSpec(2, 1), "cpu", _phase8_host,
+                         spec_npz, c2["cfg"], t, workdir, n_hosts=2,
+                         host=None)
         w_hosts = time.perf_counter() - t0
+        tags = _host_tags(err, "phase8 two host processes")
+        if tags != {0, 1}:
+            raise AssertionError(f"phase8 two host processes: log lines "
+                                 f"tagged hosts {sorted(tags)}, not 0 and 1")
         hs = []
         for p in range(2):
             with open(os.path.join(workdir, f"host{p}.json")) as f:
@@ -3300,6 +3418,49 @@ def phase_multihost(workdir: str):
     finally:
         dmesh.LAUNCH_TIMEOUT = timeout
         shutil.rmtree(c2.get("dir", ""), ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _stderr_to(path: str):
+    """Inside the block, this process's stderr (fd 2, which the processes
+    it starts inherit) goes to `path`; after it, the file is copied to the
+    real stderr."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+        with open(path) as f:
+            sys.stderr.write(f.read())
+        sys.stderr.flush()
+
+
+def _host_tags(path: str, what: str) -> set:
+    """The hosts N of the port's log lines in `path`; raises where a port
+    log line lacks the form `HH:MM:SS L [hostN] name: message` or where
+    there is none."""
+    import re
+
+    tags, n = set(), 0
+    for line in open(path):
+        if " kmerax_torch" not in line or not re.match(
+                r"\d\d:\d\d:\d\d [DIWEC] ", line):
+            continue
+        m = re.match(r"\d\d:\d\d:\d\d [DIWEC] \[host(\d+)\] "
+                     r"kmerax_torch[\w.]*: ", line)
+        if m is None:
+            raise AssertionError(f"{what}: log line without its host: "
+                                 f"{line!r}")
+        tags.add(int(m.group(1)))
+        n += 1
+    if n == 0:
+        raise AssertionError(f"{what}: no log line of the port")
+    return tags
 
 
 def _free_port() -> int:

@@ -1,12 +1,15 @@
 """Benchmark presets (port of kmerax/bench/runners.py): k-mers/s (count),
-reads/s (correct, align) and an end-to-end FASTQ run (count then correct)
-on one device.
+reads/s (correct, align) on one device, and an end-to-end FASTQ run
+(count then correct) on the config's mesh.
 
 Each timed preset runs the port's production step: count one K1
 `bloom_insert` a batch (no pending buffer: the preset counts without the
 exact spectrum), correct `pipeline/correct.make_correct_step` (K2 and K3),
 align `ops/align.validate_batch` (K4); e2e runs `run_count` and
-`run_correct` on one FASTQ file.
+`run_correct` on one FASTQ file: here on one device, or, as the JAX
+package's e2e counts and corrects on the config's mesh, on the ranks of a
+mesh of D·S > 1 or of a multi-host run (`e2e_stages` through
+dist/mesh.launch), with the ranks' start-up reported apart as `launch_s`.
 
 Timing (`_time_fresh_pass`): two warm calls on batch 0, then one chained
 pass over N_FRESH fresh batches already on the device, with one device
@@ -188,44 +191,127 @@ def bench_align(cfg: KmeraxConfig, n_reads: int = 16384,
                    "reads/s/chip", device, batch_wall_s=dt)
 
 
-def bench_e2e(cfg: KmeraxConfig, n_reads: int = 65536,
-              read_len: int = 150, *, device) -> dict:
-    """End-to-end reads/s: count then correct one FASTQ file through the
-    production run_count / run_correct (parse, H2D, kernels, D2H, FASTQ
-    write, overlapped by the background batcher)."""
-    from kmerax_torch.pipeline.correct import run_correct
-    from kmerax_torch.pipeline.count import run_count
-
-    device = resolve_device(device)
+def write_e2e_fastq(path: str, n_reads: int, read_len: int) -> None:
+    """The e2e preset's FASTQ: n_reads reads of a 2^20 bp random genome
+    with 1 % substitutions, drawn from seed 0 (the JAX package's draws),
+    names r0.., qualities all 'I'."""
     rng = np.random.default_rng(0)
     genome = rng.integers(0, 4, 1 << 20).astype(np.uint8)
     reads = _draw_reads(rng, genome, n_reads, read_len)
     code = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "wb") as f:
+        qual = b"I" * read_len
+        for i in range(n_reads):
+            f.write(b"@r%d\n" % i)
+            f.write(code[reads[i]].tobytes())
+            f.write(b"\n+\n")
+            f.write(qual)
+            f.write(b"\n")
+
+
+def e2e_stages(cfg: KmeraxConfig, fq: str, out: str, device) -> dict:
+    """run_count then run_correct of the FASTQ `fq` into `out`, on `device`
+    or on this rank of the current mesh (its rank 0 writes `out`); returns
+    this process's stage walls, {"count_wall_s", "correct_wall_s"}.
+
+    Across hosts each host passes its own `fq` (the same bytes) and `out`;
+    the corrected parts then go next to rank 0's `out`, which the hosts
+    must share, as the per-host correction's concatenation needs."""
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.pipeline.correct import run_correct
+    from kmerax_torch.pipeline.count import run_count
+
+    mesh = dmesh.current()
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        device = mesh.device
+        if mesh.n_hosts > 1:
+            out = _rank0_path(out)
+    t0 = time.perf_counter()
+    state = run_count(cfg, [fq], device=device)
+    t_count = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_correct(cfg, [fq], state, out, device=device)
+    return {"count_wall_s": t_count,
+            "correct_wall_s": time.perf_counter() - t0}
+
+
+def _rank0_path(path: str) -> str:
+    """Rank 0's `path` on every rank of the current mesh."""
+    import torch.distributed as dist
+
+    from kmerax_torch.dist.mesh import current
+
+    got = [path]
+    dist.broadcast_object_list(got, src=0, group=current().hosts_group)
+    return got[0]
+
+
+def _on_mesh(cfg: KmeraxConfig, hosts) -> bool:
+    """Whether e2e runs on spawned ranks: a mesh of D·S > 1, or hosts."""
+    return cfg.mesh_data * cfg.mesh_bucket > 1 or hosts[0] is not None
+
+
+def bench_e2e(cfg: KmeraxConfig, n_reads: int = 65536,
+              read_len: int = 150, *, device,
+              hosts=(None, 1, 0)) -> dict:
+    """End-to-end reads/s: count then correct one FASTQ file through the
+    production run_count / run_correct (parse, H2D, kernels, D2H, FASTQ
+    write, overlapped by the background batcher).
+
+    The FASTQ is written here. On a config of one device the stages run
+    here. On a mesh of D·S > 1, or across hosts (`hosts` = (coordinator,
+    N, p), as the CLI reads them), they run on the ranks this process
+    starts (dist/mesh.launch: its D·S / N ranks), each `e2e_stages`; the
+    walls are its first rank's, and `launch_s` is the rest of the launch:
+    the ranks' start, rendezvous, imports and teardown."""
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.pipeline.run import restore_observed, with_observed
+
+    device = resolve_device(device)
+    coordinator, n_hosts, host = hosts
+    spec = dmesh.MeshSpec(cfg.mesh_data, cfg.mesh_bucket)
+    on_mesh = _on_mesh(cfg, hosts)
     with tempfile.TemporaryDirectory() as td:
         fq = os.path.join(td, "bench.fastq")
-        with open(fq, "wb") as f:
-            qual = b"I" * read_len
-            for i in range(n_reads):
-                f.write(b"@r%d\n" % i)
-                f.write(code[reads[i]].tobytes())
-                f.write(b"\n+\n")
-                f.write(qual)
-                f.write(b"\n")
+        write_e2e_fastq(fq, n_reads, read_len)
         out = os.path.join(td, "corrected.fastq")
-        t0 = time.perf_counter()
-        state = run_count(cfg, [fq], device=device)
-        t_count = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        run_correct(cfg, [fq], state, out, device=device)
-        t_correct = time.perf_counter() - t0
-    return _result(f"e2e_correct_reads_per_s_k{cfg.k}", n_reads / t_correct,
-                   "reads/s/chip", device, count_wall_s=t_count,
-                   correct_wall_s=t_correct)
+        if not on_mesh:
+            walls = e2e_stages(cfg, fq, out, device)
+            extra = {}
+        else:
+            # launch raises where the cards cannot hold the mesh, before
+            # it starts a rank
+            if device.type == "cuda":
+                # rank 0 takes this process's card too
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            walls, obs = dmesh.launch(
+                spec, device, with_observed, e2e_stages, cfg, fq, out,
+                device.type, coordinator=coordinator, n_hosts=n_hosts,
+                host=host)
+            extra = {"launch_s": time.perf_counter() - t0
+                     - walls["count_wall_s"] - walls["correct_wall_s"]}
+            restore_observed(obs)
+    return _result(f"e2e_correct_reads_per_s_k{cfg.k}",
+                   n_reads / walls["correct_wall_s"], "reads/s/chip",
+                   device, **walls, **extra)
 
 
 def run_preset(preset: str, cfg: KmeraxConfig, n_reads: int = 16384, *,
-               device) -> dict:
+               device, hosts=(None, 1, 0)) -> dict:
+    """The preset's metrics. count, correct and align time one device here
+    whatever the config's mesh; e2e runs on the mesh and across `hosts`
+    (bench_e2e)."""
+    from kmerax_torch.dist import mesh as dmesh
+
     kw = dict(device=device)
+    if preset in ("e2e", "all") and _on_mesh(cfg, hosts):
+        # before any preset runs: a mesh the cards cannot hold raises here
+        spec = dmesh.MeshSpec(cfg.mesh_data, cfg.mesh_bucket)
+        dmesh.check_hosts(spec, hosts[1], hosts[2])
+        dmesh.check_devices(spec, device, hosts[1])
     if preset == "count":
         return bench_count(cfg, n_reads=n_reads, **kw)
     if preset == "correct":
@@ -233,11 +319,11 @@ def run_preset(preset: str, cfg: KmeraxConfig, n_reads: int = 16384, *,
     if preset == "align":
         return bench_align(cfg, n_reads=n_reads, **kw)
     if preset == "e2e":
-        return bench_e2e(cfg, **kw)
+        return bench_e2e(cfg, hosts=hosts, **kw)
     if preset == "all":
         return {"count": bench_count(cfg, n_reads=n_reads, **kw),
                 "correct": bench_correct(cfg, n_reads=min(n_reads, 8192),
                                          **kw),
                 "align": bench_align(cfg, n_reads=n_reads, **kw),
-                "e2e": bench_e2e(cfg, **kw)}
+                "e2e": bench_e2e(cfg, hosts=hosts, **kw)}
     raise ValueError(f"unknown preset {preset}")

@@ -22,9 +22,11 @@ kernels' plain versions. `--mesh-data D --mesh-bucket S` runs count,
 correct, assemble and pipeline on a mesh of D·S ranks that this command
 spawns, one process per device (dist/mesh.py): rank r on cuda:r over NCCL,
 or on the CPU over gloo with `--device cpu`; rank 0 writes the files and
-its result is printed. `align` and `bench` run on one device, as in the
-JAX package (an acceptance config picks its own mesh); `bench --preset`
-with mesh flags fails with a "not yet ported" error.
+its result is printed. `align` runs on one device, as in the JAX package.
+`bench --preset` times count, correct and align on one device whatever the
+mesh, and runs e2e's count and correct on the mesh's ranks (across hosts
+too), with their start-up apart as `launch_s`; an acceptance config and
+`--scaling` pick their own mesh.
 
 Multi-host: each of N hosts runs the same command with `--coordinator
 HOST0:PORT --num-procs N --process-id p` (or the KMERAX_COORDINATOR,
@@ -289,7 +291,9 @@ def _pipeline(args, cfg: KmeraxConfig, device) -> dict:
 
 def _bench(args, cfg: KmeraxConfig, device) -> dict:
     """An acceptance config (which sizes its own config, as in the JAX
-    package) or a benchmark preset on the CLI's config."""
+    package) or a benchmark preset on the CLI's config: its e2e part on
+    the config's mesh and this host's ranks of a multi-host run (every
+    host writes the same FASTQ into its own temp dir)."""
     if args.scaling:
         from kmerax_torch.bench.scaling import run_scaling
 
@@ -306,10 +310,8 @@ def _bench(args, cfg: KmeraxConfig, device) -> dict:
         return run_config(args.acceptance, scale=args.scale, device=device)
     from kmerax_torch.bench.runners import run_preset
 
-    if cfg.mesh_data * cfg.mesh_bucket > 1:
-        raise NotImplementedError("not yet ported to kmerax_torch: bench "
-                                  "--preset on a mesh")
-    return run_preset(args.preset, cfg, n_reads=args.reads, device=device)
+    return run_preset(args.preset, cfg, n_reads=args.reads, device=device,
+                      hosts=_hosts(args))
 
 
 def _load_or_count(cfg: KmeraxConfig, args, m, device):

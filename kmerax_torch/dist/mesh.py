@@ -372,6 +372,8 @@ def host_barrier(tag: str = "", *, leaders: bool = False) -> None:
 def _worker(i, first, n_local, spec, device, init_method, n_hosts, tmpdir,
             fn, args):
     rank = first + i
+    # the host in every log line of this rank (utils/logging.py)
+    os.environ["KMERAX_PROCESS_INDEX"] = str(rank // (spec.ndev // n_hosts))
     if torch.device(device).type == "cpu" and "OMP_NUM_THREADS" not in \
             os.environ:
         # the cores split over the ranks started here; hosts emulated on

@@ -140,3 +140,27 @@ def hosts_probe(big: int):
         out["received"] = [r.tolist() for r in dmesh.host_exchange(parts)]
     dmesh.host_barrier("probe")
     return out
+
+
+def log_probe(out_dir: str) -> str:
+    """Run on every rank of a mesh: one line through the port's logger,
+    caught from its own handler (the stream it was built with is the
+    rank's stderr) and written to out_dir/log<rank>.txt; returns it."""
+    import io
+    import os
+
+    from kmerax_torch.dist import mesh as dmesh
+    from kmerax_torch.utils.logging import get_logger
+
+    log = get_logger("kmerax_torch.probe")
+    buf = io.StringIO()
+    old = log.handlers[0].setStream(buf)
+    try:
+        log.info("rank %d", dmesh.current().rank)
+    finally:
+        log.handlers[0].setStream(old)
+    line = buf.getvalue()
+    with open(os.path.join(out_dir, f"log{dmesh.current().rank}.txt"),
+              "w") as f:
+        f.write(line)
+    return line

@@ -41,18 +41,21 @@ def free_port() -> int:
     return port
 
 
-def run_hosts(argv, tmp_path, n_hosts=2, tag="h"):
+def run_hosts(argv, tmp_path, n_hosts=2, tag="h", cmd=None):
     """Run `python -m kmerax_torch.cli *argv --device cpu --coordinator
-    127.0.0.1:P --num-procs N --process-id p` once per host p, all at once;
-    returns [(printed result, stderr log)] in host order. Every host gets
-    HOST_TIMEOUT seconds, then all are killed and the test fails."""
+    127.0.0.1:P --num-procs N --process-id p` once per host p, all at once
+    (`cmd`, a command that takes the CLI's arguments, in place of `python
+    -m kmerax_torch.cli`); returns [(printed result, stderr log)] in host
+    order. Every host gets HOST_TIMEOUT seconds, then all are killed and
+    the test fails."""
+    cmd = cmd or [sys.executable, "-m", "kmerax_torch.cli"]
     port = free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     procs = []
     for p in range(n_hosts):
         err = open(tmp_path / f"{tag}{p}.log", "w+")
         procs.append((subprocess.Popen(
-            [sys.executable, "-m", "kmerax_torch.cli", *argv, "--device",
+            [*cmd, *argv, "--device",
              "cpu", "--coordinator", f"127.0.0.1:{port}", "--num-procs",
              str(n_hosts), "--process-id", str(p)],
             stdout=subprocess.PIPE, stderr=err, env=env, cwd=tmp_path), err))

@@ -3,6 +3,10 @@ K1r's plain version, dist/mesh.py) against the JAX package's
 kmerax/spectrum/sharded.py and `insert(..., local_bits=)`. Exact:
 tolerance 0, every output is an integer."""
 
+import contextlib
+import io
+import json
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -15,10 +19,13 @@ from kmerax.config import KmeraxConfig as JConfig
 from kmerax.core import canonical_words as j_canonical_words
 from kmerax.core import extract_kmers as j_extract_kmers
 from kmerax.dist.mesh import MeshSpec as JMeshSpec, make_mesh
-from kmerax.pipeline.run import _bloom_params
+from kmerax.pipeline.run import _bloom_params, \
+    run_correct as j_run_correct, run_count as j_run_count
 from kmerax.spectrum.bloom import BloomParams as JBloomParams, insert
 from kmerax.spectrum.sharded import ShardedParams as JShardedParams, \
     _route, _shard_of
+import kmerax_torch.bench.runners as t_runners
+from kmerax_torch.bench.runners import e2e_stages, run_preset
 from kmerax_torch.cli import main
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.core.codec import canonical_words, to_u32_bits
@@ -30,6 +37,8 @@ from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
     bloom_insert_rows, insert_plain
 from kmerax_torch.spectrum.sharded import ShardedParams, recv_rows, \
     shard_of
+
+from sim import ecoli_like, make_fastq
 
 from parity import n, reads_with_ns, run_mesh
 
@@ -262,9 +271,85 @@ def test_mesh_on_cuda_needs_its_devices(tmp_path):
                   device="cpu")
 
 
-def test_bench_preset_on_mesh_not_ported():
-    """`bench --preset` times one device; on a mesh it is not ported yet
-    (the JAX package's e2e preset would count on the mesh)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["bench", "--preset", "count", "--mesh-data", "2",
-              "--device", "cpu"])
+def test_bench_preset_on_mesh_not_ported(monkeypatch):
+    """`bench --preset all` on a 1 x 2 mesh (ported now): count, correct
+    and align time one device, e2e counts and corrects on two gloo ranks;
+    the four JAX metric names in the JAX order, the e2e entry with rank
+    0's stage walls and the ranks' start-up apart (`launch_s`)."""
+    monkeypatch.setattr(t_runners.bench_e2e, "__defaults__", (640, 150))
+    monkeypatch.setattr(dmesh, "LAUNCH_TIMEOUT", 300)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["bench", "--preset", "all", "--mesh-bucket", "2",
+                     "--reads", "256", "--bloom-log2-width", "18",
+                     "--batch-reads", "256", "--exact-capacity",
+                     str(1 << 17), "--device", "cpu"]) == 0
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert list(res) == ["count", "correct", "align", "e2e"]
+    assert [r["metric"] for r in res.values()] == [
+        "kmers_per_s_per_chip_k31", "reads_per_s_per_chip_k31",
+        "align_reads_per_s_per_chip_k31", "e2e_correct_reads_per_s_k31"]
+    e2e = res["e2e"]
+    assert e2e["launch_s"] > 0 and e2e["count_wall_s"] > 0
+    assert e2e["value"] == 640 / e2e["correct_wall_s"]
+    assert all("launch_s" not in res[p] for p in ("count", "correct",
+                                                  "align"))
+
+
+E2E_CFG = dict(k=31, bloom_log2_width=16, batch_reads=128,
+               max_read_len=100, exact_capacity=1 << 16)
+
+
+@pytest.fixture(scope="module")
+def e2e_refs(tmp_path_factory):
+    """A 600-read FASTQ and the JAX package's run_count + run_correct of it
+    at 1 x 1, 1 x 2 and 2 x 1 (its 8 CPU devices): {mesh: bytes}."""
+    d = tmp_path_factory.mktemp("e2e_mesh")
+    _, reads = ecoli_like(seed=21, genome_len=3000, coverage=20,
+                          read_len=100, error_rate=0.01)
+    fq = d / "reads.fastq"
+    fq.write_bytes(make_fastq(reads))
+    refs = {}
+    for mesh in ((1, 1), (1, 2), (2, 1)):
+        cfg = JConfig(mesh_data=mesh[0], mesh_bucket=mesh[1], **E2E_CFG)
+        out = d / f"j{mesh[0]}x{mesh[1]}.fastq"
+        j_run_correct(cfg, [str(fq)], j_run_count(cfg, [str(fq)]), str(out))
+        refs[mesh] = out.read_bytes()
+    return fq, refs
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_bench_e2e_on_mesh_matches_jax(e2e_refs, tmp_path, monkeypatch,
+                                       mesh):
+    """The e2e preset's stages (`runners.e2e_stages`, what `bench_e2e`
+    launches) on a D x S gloo mesh: the corrected FASTQ rank 0 wrote ==
+    the JAX package's under the same mesh config == the port's 1 x 1 run
+    (in process) == the JAX 1 x 1 run; edits were made. Exact."""
+    monkeypatch.setattr(dmesh, "LAUNCH_TIMEOUT", 300)
+    fq, refs = e2e_refs
+    one = e2e_stages(KmeraxConfig(**E2E_CFG), str(fq),
+                     str(tmp_path / "t1x1.fastq"), "cpu")
+    cfg = KmeraxConfig(mesh_data=mesh[0], mesh_bucket=mesh[1], **E2E_CFG)
+    walls = dmesh.launch(dmesh.MeshSpec(*mesh), "cpu", e2e_stages, cfg,
+                         str(fq), str(tmp_path / "t.fastq"), "cpu")
+    assert walls["count_wall_s"] > 0 and walls["correct_wall_s"] > 0
+    assert one["count_wall_s"] > 0
+    got = (tmp_path / "t.fastq").read_bytes()
+    assert got == refs[mesh]
+    assert got == (tmp_path / "t1x1.fastq").read_bytes()
+    assert got == refs[(1, 1)]
+    assert got != fq.read_bytes()
+
+
+def test_bench_e2e_mesh_checks_cards_first():
+    """`bench --preset all|e2e` on a mesh the cards cannot hold raises the
+    JAX package's device-count error before any preset runs or any rank
+    starts (never a fall-back to gloo or the CPU)."""
+    have = torch.cuda.device_count()
+    if have >= 2:
+        pytest.skip("two cards are present: the mesh runs there")
+    cfg = KmeraxConfig(mesh_bucket=2)
+    for preset in ("all", "e2e"):
+        with pytest.raises(ValueError,
+                           match=f"mesh 1x2 needs 2 devices, have {have}"):
+            run_preset(preset, cfg, device="cuda")
