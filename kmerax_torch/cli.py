@@ -39,8 +39,17 @@ A spectrum directory from `count` is the JAX package's checkpoint format
 other's. `bloom_counter = "p16"` in the `--config` TOML counts into p16
 counters (two saturating 16-bit counters a word) on one device; `correct
 --spectrum` and `assemble --spectrum` read the table's layout from its
-length. KMERAX_TRACE_DIR=DIR writes a torch.profiler trace of the count,
-correct and align stages under DIR/<stage>/ (utils/tracing.py).
+length.
+
+`--metrics FILE` appends one JSON record a stage (utils/metrics.py): its
+wall on the host clock, its reads and k-mers, and the `spans` ({name:
+[seconds, n]}) and `counters` ({name: n}) taken inside it
+(utils/tracing.py): the parse wait, the exact-spectrum flush and the rows
+its merges take, the correct step and the FASTQ write, the graph's phases,
+the align index's two parts. KMERAX_TRACE_DIR=DIR writes a torch.profiler
+trace of each whole count, correct and align stage under DIR/<stage>/; the
+spans are in it as user_annotation events, so Perfetto shows them on the
+kernels' timeline.
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from kmerax_torch.core.codec import M32, canonical_words, num_words, \
 from kmerax_torch.graph.unitig import chains_from_edges_np, emit_unitigs
 from kmerax_torch.spectrum.host import HostSpectrum, pack_rows, \
     searchsorted_packed
+from kmerax_torch.utils import tracing
 from kmerax_torch.utils.logging import get_logger
 
 log = get_logger("kmerax_torch.graph.partitioned")
@@ -141,19 +142,24 @@ def assemble_host(host: HostSpectrum, t: int, k: int, device,
     holds the same replicated spectrum and calls this: each discovers the
     edges of its partitions, and an element-wise sum over the hosts
     (unowned partitions contributed zeros) completes the tables."""
-    sidx = host.solid_indices(t)
-    suniq = np.ascontiguousarray(host.uniq[sidx])
-    C = len(suniq)
-    log.info("assemble[host]: %d solid k-mers", C)
-    if C == 0:
-        return []
-    edges = solid_edges_host(suniq, k, device, partition_rows, n_procs, pid)
-    if n_procs > 1:
-        from kmerax_torch.dist.mesh import host_allgather
+    with tracing.span("assemble.edges"):
+        sidx = host.solid_indices(t)
+        suniq = np.ascontiguousarray(host.uniq[sidx])
+        C = len(suniq)
+        log.info("assemble[host]: %d solid k-mers", C)
+        if C == 0:
+            return []
+        edges = solid_edges_host(suniq, k, device, partition_rows, n_procs,
+                                 pid)
+        if n_procs > 1:
+            from kmerax_torch.dist.mesh import host_allgather
 
-        edges = finalize_edges({
-            key: host_allgather(edges[key], leaders=True).sum(axis=0)
-            .astype(edges[key].dtype)
-            for key in ("succ_v", "succ_o", "outdeg")})
-    arrays = chains_from_edges_np(suniq, np.ones(C, dtype=bool), edges, k)
-    return emit_unitigs(suniq, arrays, k)
+            edges = finalize_edges({
+                key: host_allgather(edges[key], leaders=True).sum(axis=0)
+                .astype(edges[key].dtype)
+                for key in ("succ_v", "succ_o", "outdeg")})
+    with tracing.span("assemble.chains"):
+        arrays = chains_from_edges_np(suniq, np.ones(C, dtype=bool), edges,
+                                      k)
+    with tracing.span("assemble.emit"):
+        return emit_unitigs(suniq, arrays, k)

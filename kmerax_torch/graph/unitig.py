@@ -178,6 +178,7 @@ def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
     from kmerax_torch.io.fasta import write_fasta
     from kmerax_torch.pipeline.count import run_count
     from kmerax_torch.spectrum.host_sharded import ShardedHostSpectrum
+    from kmerax_torch.utils import tracing
 
     if device is None:
         device = (state.bloom_table if state.bloom_table is not None
@@ -206,7 +207,10 @@ def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
                 **(dict(n_procs=mesh.n_hosts, pid=mesh.host) if hosts
                    else {}))
             if dmesh.is_writer():
-                write_fasta(out_fasta, seqs)
+                # the FASTA's seconds join the emit span assemble_host
+                # counted
+                with tracing.span("assemble.emit", n=0):
+                    write_fasta(out_fasta, seqs)
             n = len(seqs)
     if mesh is None:
         return n

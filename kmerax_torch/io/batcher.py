@@ -18,6 +18,7 @@ import numpy as np
 
 from kmerax_torch.core.codec import seq_bytes_to_bases
 from kmerax_torch.io.fastq import FastqReader, FastqRecord
+from kmerax_torch.utils import tracing
 
 
 @dataclass
@@ -167,7 +168,8 @@ class BackgroundBatcher:
 
     def __iter__(self):
         while True:
-            item = self._q.get()
+            with tracing.span("io.parse_wait"):
+                item = self._q.get()
             if item is self._SENTINEL:
                 if self._err is not None:
                     raise self._err

@@ -11,7 +11,6 @@ from __future__ import annotations
 import contextlib
 import os
 import shutil
-import time
 from typing import Optional
 
 import numpy as np
@@ -24,10 +23,10 @@ from kmerax_torch.io.fasta import read_fasta
 from kmerax_torch.ops.align import build_contig_index, validate_batch
 from kmerax_torch.ops.seed_hash import build_seed_hash
 from kmerax_torch.pipeline.count import to_device_batch
+from kmerax_torch.utils import tracing
 from kmerax_torch.utils.cuda import resolve_device
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
-from kmerax_torch.utils.tracing import maybe_trace
 
 log = get_logger("kmerax_torch.pipeline")
 
@@ -75,21 +74,22 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
 
     n_reads = n_aligned = 0
     sum_ident = 0.0
-    index_s, index_kmers, table_bytes = 0.0, 0, 0
-    m.stage_start("align")
-    if units:
-        t0 = time.perf_counter()
-        contigs = [seq_bytes_to_bases(
-            np.frombuffer(seq.encode("ascii"), dtype=np.uint8))
-            for _, seq in read_fasta(contigs_fasta)]
-        cat, uniq, pay = build_contig_index(contigs, k, device=device)
-        cat_dev = torch.from_numpy(cat.astype(np.int8)).to(device) \
-            if len(cat) else torch.zeros(1, dtype=torch.int8, device=device)
-        index = build_seed_hash(uniq, pay, device=device)
-        index_s = time.perf_counter() - t0
-        index_kmers = int(len(uniq))
-        table_bytes = index.tab.numel() * index.tab.element_size()
-    with maybe_trace("align", device):
+    index_kmers = table_bytes = 0
+    with m.stage("align", device) as st:
+        if units:
+            with tracing.span("align.contig_index"):
+                contigs = [seq_bytes_to_bases(
+                    np.frombuffer(seq.encode("ascii"), dtype=np.uint8))
+                    for _, seq in read_fasta(contigs_fasta)]
+                cat, uniq, pay = build_contig_index(contigs, k,
+                                                    device=device)
+                cat_dev = (torch.from_numpy(cat.astype(np.int8)).to(device)
+                           if len(cat) else
+                           torch.zeros(1, dtype=torch.int8, device=device))
+            with tracing.span("align.seed_table"):
+                index = build_seed_hash(uniq, pay, device=device)
+            index_kmers = int(len(uniq))
+            table_bytes = index.tab.numel() * index.tab.element_size()
         for gpaths, tpath in units:
             with (open(tpath, "w") if tpath
                   else contextlib.nullcontext()) as tsv:
@@ -112,30 +112,31 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
                             f"{int(found[i])}\t{int(strand[i])}\t"
                             f"{int(pos[i])}\t{int(score[i])}\t"
                             f"{ident[i]:.4f}\n" for i in range(batch.n)))
-    if per_host:
-        dmesh.host_barrier("align_parts")
-        # int64 sums; the identities ride as micro-identity integers
-        tot = dmesh.host_allgather(np.asarray(
-            [n_reads, n_aligned, int(round(sum_ident * 1e6))],
-            np.int64)).sum(axis=0)
-        n_reads, n_aligned = int(tot[0]), int(tot[1])
-        sum_ident = float(tot[2]) / 1e6
-        if out_tsv and dmesh.is_writer():
-            with open(out_tsv, "wb") as dst:
-                for i in range(len(shards)):
-                    part = f"{out_tsv}.part{i:04d}"
-                    with open(part, "rb") as src:
-                        shutil.copyfileobj(src, dst)
-                    os.remove(part)
-        dmesh.host_barrier("align_concat")
-    elif hosts:
-        got = dmesh.host_broadcast(np.asarray(
-            [n_reads, n_aligned, sum_ident], np.float64))
-        n_reads, n_aligned, sum_ident = int(got[0]), int(got[1]), got[2]
-    stats = {"reads": n_reads, "aligned": n_aligned,
-             "aligned_frac": round(n_aligned / max(n_reads, 1), 4),
-             "mean_identity": round(sum_ident / max(n_aligned, 1), 4)}
-    m.stage_end("align", **stats, index_s=round(index_s, 4),
-                index_kmers=index_kmers, table_bytes=table_bytes)
+        if per_host:
+            dmesh.host_barrier("align_parts")
+            # int64 sums; the identities ride as micro-identity integers
+            tot = dmesh.host_allgather(np.asarray(
+                [n_reads, n_aligned, int(round(sum_ident * 1e6))],
+                np.int64)).sum(axis=0)
+            n_reads, n_aligned = int(tot[0]), int(tot[1])
+            sum_ident = float(tot[2]) / 1e6
+            if out_tsv and dmesh.is_writer():
+                with open(out_tsv, "wb") as dst:
+                    for i in range(len(shards)):
+                        part = f"{out_tsv}.part{i:04d}"
+                        with open(part, "rb") as src:
+                            shutil.copyfileobj(src, dst)
+                        os.remove(part)
+            dmesh.host_barrier("align_concat")
+        elif hosts:
+            got = dmesh.host_broadcast(np.asarray(
+                [n_reads, n_aligned, sum_ident], np.float64))
+            n_reads, n_aligned, sum_ident = int(got[0]), int(got[1]), got[2]
+        stats = {"reads": n_reads, "aligned": n_aligned,
+                 "aligned_frac": round(n_aligned / max(n_reads, 1), 4),
+                 "mean_identity": round(sum_ident / max(n_aligned, 1), 4)}
+        st.set(**stats, index_s=round(st.seconds("align.contig_index")
+                                    + st.seconds("align.seed_table"), 4),
+               index_kmers=index_kmers, table_bytes=table_bytes)
     log.info("align: %s", stats)
     return stats

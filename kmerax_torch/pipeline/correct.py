@@ -51,9 +51,9 @@ from kmerax_torch.ops.correct_kernels import make_eval_fn, make_window_fn
 from kmerax_torch.pipeline.count import CountState, bloom_params, \
     to_device_batch
 from kmerax_torch.spectrum.exact import lookup_sorted
+from kmerax_torch.utils import tracing
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
-from kmerax_torch.utils.tracing import maybe_trace
 
 log = get_logger("kmerax_torch.pipeline")
 
@@ -232,8 +232,7 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
                                   or per_host)
 
     n_reads = n_edited = n_edits = 0
-    m.stage_start("correct")
-    with maybe_trace("correct", device):
+    with m.stage("correct", device) as st:
         for gpaths, gout in units:
             with (FastqWriter(gout) if writer
                   else contextlib.nullcontext()) as out:
@@ -241,13 +240,15 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
                     """Read back + write one completed batch."""
                     nonlocal n_reads, n_edited, n_edits
                     batch, fixed, ne, packed = pend
-                    fixed, ne = fixed.cpu().numpy(), ne.cpu().numpy()
-                    if packed:
-                        fixed = wire.unpack2_host(fixed, cfg.max_read_len)
-                    if out is not None:
-                        for i in range(batch.n):
-                            out.write_record(batch.records[i],
-                                             fixed[i, :batch.lengths[i]])
+                    with tracing.span("correct.write"):
+                        fixed, ne = fixed.cpu().numpy(), ne.cpu().numpy()
+                        if packed:
+                            fixed = wire.unpack2_host(fixed,
+                                                      cfg.max_read_len)
+                        if out is not None:
+                            for i in range(batch.n):
+                                out.write_record(batch.records[i],
+                                                 fixed[i, :batch.lengths[i]])
                     n_reads += batch.n
                     n_edited += int((ne[:batch.n] > 0).sum())
                     n_edits += int(ne[:batch.n].sum())
@@ -268,7 +269,8 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
                         bases, lengths, packed = to_device_batch(
                             ReadBatch(batch.bases[rows], batch.lengths[rows],
                                       0, []), device, pack)
-                    fixed, ne = step(bases, lengths)
+                    with tracing.span("correct.step"):
+                        fixed, ne = step(bases, lengths)
                     if packed:          # the D2H leg on the 2-bit wire too
                         fixed = wire.pack2_dev(fixed)
                     if mesh is not None:
@@ -279,30 +281,30 @@ def run_correct(cfg: KmeraxConfig, paths, state: CountState, out_path,
                     pend = (batch, fixed, ne, packed)
                 if pend is not None:
                     flush(pend)
-    if mesh is not None and mesh.n_hosts > 1:
-        # the next stage reads the corrected FASTQ on every host: wait
-        # until every writer is done
-        host_barrier("correct_write")
-        if per_host:
-            tot = host_allgather(np.asarray([n_reads, n_edited, n_edits],
-                                            np.int64)).sum(axis=0)
-            n_reads, n_edited, n_edits = (int(x) for x in tot)
-    elif mesh is not None:
-        # the next stage (the assembly's re-count) reads the corrected
-        # FASTQ on every rank: wait until rank 0 has written it
-        mesh.barrier()
-    if concat is not None:
-        # rank 0 streams the parts in shard order through one writer (one
-        # deterministic gzip stream where the output is .gz)
-        if dmesh.is_writer():
-            with _open_w(concat) as dst:
+        if mesh is not None and mesh.n_hosts > 1:
+            # the next stage reads the corrected FASTQ on every host: wait
+            # until every writer is done
+            host_barrier("correct_write")
+            if per_host:
+                tot = host_allgather(np.asarray([n_reads, n_edited, n_edits],
+                                                np.int64)).sum(axis=0)
+                n_reads, n_edited, n_edits = (int(x) for x in tot)
+        elif mesh is not None:
+            # the next stage (the assembly's re-count) reads the corrected
+            # FASTQ on every rank: wait until rank 0 has written it
+            mesh.barrier()
+        if concat is not None:
+            # rank 0 streams the parts in shard order through one writer (one
+            # deterministic gzip stream where the output is .gz)
+            if dmesh.is_writer():
+                with _open_w(concat) as dst:
+                    for _, part in all_units:
+                        with open(part, "rb") as src:
+                            shutil.copyfileobj(src, dst, 8 << 20)
                 for _, part in all_units:
-                    with open(part, "rb") as src:
-                        shutil.copyfileobj(src, dst, 8 << 20)
-            for _, part in all_units:
-                os.remove(part)
-        host_barrier("correct_concat")
-    stats = {"reads": n_reads, "edited_reads": n_edited, "edits": n_edits}
-    m.stage_end("correct", **stats)
+                    os.remove(part)
+            host_barrier("correct_concat")
+        stats = {"reads": n_reads, "edited_reads": n_edited, "edits": n_edits}
+        st.set(**stats)
     log.info("correct: %s", stats)
     return stats

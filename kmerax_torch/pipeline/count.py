@@ -44,9 +44,9 @@ from kmerax_torch.spectrum.exact import (
 )
 from kmerax_torch.spectrum.histogram import solid_threshold
 from kmerax_torch.spectrum.host import HostSpectrum
+from kmerax_torch.utils import tracing
 from kmerax_torch.utils.logging import get_logger
 from kmerax_torch.utils.metrics import MetricsWriter
-from kmerax_torch.utils.tracing import maybe_trace
 
 log = get_logger("kmerax_torch.pipeline")
 
@@ -170,12 +170,14 @@ def _count_steps(cfg: KmeraxConfig, k: int):
 
     def exact_flush(uniq_np, counts_np, pending, off):
         """One D2H of the raw rows + a host sort/merge."""
-        pend = pending[:off].cpu().numpy().view(np.uint32)
-        pend = pend[~np.all(pend == np.uint32(SENTINEL_WORD), axis=1)]
-        rows = np.concatenate([uniq_np, pend], axis=0)
-        wts = np.concatenate(
-            [counts_np, np.ones(len(pend), dtype=np.int64)])
-        return np_merge_counted(rows, wts)
+        with tracing.span("count.flush"):
+            pend = pending[:off].cpu().numpy().view(np.uint32)
+            pend = pend[~np.all(pend == np.uint32(SENTINEL_WORD), axis=1)]
+            rows = np.concatenate([uniq_np, pend], axis=0)
+            tracing.count("count.merge_rows", len(rows))
+            wts = np.concatenate(
+                [counts_np, np.ones(len(pend), dtype=np.int64)])
+            return np_merge_counted(rows, wts)
 
     return params, exact_flush, P, pend_rows
 
@@ -203,8 +205,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     n_reads = 0
     n_kmers = torch.zeros((), dtype=torch.int64, device=device)
     LAST_COUNT_FLUSHES = 0
-    m.stage_start("count")
-    with maybe_trace("count", device):
+    with m.stage("count", device) as st:
         for batch in BackgroundBatcher(paths, cfg.batch_reads,
                                        cfg.max_read_len):
             bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
@@ -216,14 +217,14 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
                     LAST_COUNT_FLUSHES += 1
                     off = 0
             n_reads += batch.n
-    if host_ex is not None and off > 0:
-        host_ex = exact_flush(*host_ex, pending, off)
-        LAST_COUNT_FLUSHES += 1
-    del pending
-    n_kmers = int(n_kmers)
-    host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
-                                             n_kmers)
-    m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t)
+        if host_ex is not None and off > 0:
+            host_ex = exact_flush(*host_ex, pending, off)
+            LAST_COUNT_FLUSHES += 1
+        del pending
+        n_kmers = int(n_kmers)
+        host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
+                                                 n_kmers)
+        st.set(reads=n_reads, kmers=n_kmers, threshold=t)
     log.info("count: threshold=%d", t)
     return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host,
                       exact_cap=exact_cap, counter=params.counter)
@@ -371,10 +372,12 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
     def flush(pending, off):
         global LAST_COUNT_FLUSHES
         nonlocal host_ex
-        raw = flush_pending_local(pending, off)
-        host_ex = np_merge_counted(
-            np.concatenate([host_ex[0], raw], axis=0),
-            np.concatenate([host_ex[1], np.ones(len(raw), np.int64)]))
+        with tracing.span("count.flush"):
+            raw = flush_pending_local(pending, off)
+            rows = np.concatenate([host_ex[0], raw], axis=0)
+            tracing.count("count.merge_rows", len(rows))
+            host_ex = np_merge_counted(rows, np.concatenate(
+                [host_ex[1], np.ones(len(raw), np.int64)]))
         LAST_COUNT_FLUSHES += 1
         log.info("count[mesh]: flushed %d raw rows (%d distinct resident)",
                  len(raw), len(host_ex[0]))
@@ -408,74 +411,75 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
             steps_by_safety[new_safety] = sharded_insert_step(sp, mesh, k)
         step = steps_by_safety[new_safety]
 
-    m.stage_start("count")
-    for rows_np, n_real in _mesh_batches(cfg, paths, mesh):
-        bases = torch.from_numpy(rows_np).to(device)
-        while True:
-            nk, ovf, n_new = step(table, pending, bases, off)
-            if ovf == 0:
-                break
-            # route overflow: the step was a no-op on every rank — double
-            # the per-destination capacity and replay this batch; counts
-            # stay exact because nothing was inserted
-            LAST_COUNT_RETRIES += 1
-            new_safety = sp.route_safety * 2
-            if new_safety > 4 * S:
-                raise RuntimeError(
-                    f"bucket route overflow persists at route_safety="
-                    f"{sp.route_safety} ({ovf} k-mers)")
-            log.info("count[mesh]: route overflow (%d k-mers) — retrying "
-                     "batch with route_safety=%d", ovf, new_safety)
-            _set_safety(new_safety)
-            clean_streak = 0
-        if pending is not None:
-            # the valid rows this batch appended; the next batch may append
-            # up to step_rows
-            off += n_new
-            if off + step_rows > pend_rows:
-                flush(pending, off)
-                off = 0
-        n_reads += n_real
-        n_kmers += nk
-        if sp.route_safety > base_safety:
-            clean_streak += 1
-            if clean_streak >= DECAY_AFTER:
-                log.info("count[mesh]: %d clean batches — decaying "
-                         "route_safety %d -> %d", clean_streak,
-                         sp.route_safety, max(base_safety,
-                                              sp.route_safety // 2))
-                _set_safety(max(base_safety, sp.route_safety // 2))
+    with m.stage("count", device) as st:
+        for rows_np, n_real in _mesh_batches(cfg, paths, mesh):
+            bases = torch.from_numpy(rows_np).to(device)
+            while True:
+                nk, ovf, n_new = step(table, pending, bases, off)
+                if ovf == 0:
+                    break
+                # route overflow: the step was a no-op on every rank —
+                # double the per-destination capacity and replay this
+                # batch; counts stay exact because nothing was inserted
+                LAST_COUNT_RETRIES += 1
+                new_safety = sp.route_safety * 2
+                if new_safety > 4 * S:
+                    raise RuntimeError(
+                        f"bucket route overflow persists at route_safety="
+                        f"{sp.route_safety} ({ovf} k-mers)")
+                log.info("count[mesh]: route overflow (%d k-mers) — "
+                         "retrying batch with route_safety=%d", ovf,
+                         new_safety)
+                _set_safety(new_safety)
                 clean_streak = 0
-    if pending is not None and off > 0:
-        flush(pending, off)
-    del pending
-    LAST_ROUTE_SAFETY = sp.route_safety
+            if pending is not None:
+                # the valid rows this batch appended; the next batch may
+                # append up to step_rows
+                off += n_new
+                if off + step_rows > pend_rows:
+                    flush(pending, off)
+                    off = 0
+            n_reads += n_real
+            n_kmers += nk
+            if sp.route_safety > base_safety:
+                clean_streak += 1
+                if clean_streak >= DECAY_AFTER:
+                    log.info("count[mesh]: %d clean batches — decaying "
+                             "route_safety %d -> %d", clean_streak,
+                             sp.route_safety, max(base_safety,
+                                                  sp.route_safety // 2))
+                    _set_safety(max(base_safety, sp.route_safety // 2))
+                    clean_streak = 0
+        if pending is not None and off > 0:
+            flush(pending, off)
+        del pending
+        LAST_ROUTE_SAFETY = sp.route_safety
 
-    if sp.bloom.width * 4 <= REPLICATE_TABLE_BUDGET:
-        merged = merge_and_replicate(table, mesh)   # (width,) replicated
-    else:
-        # past the replication budget the table stays bucket-sharded only;
-        # correction takes the routed-query path
-        log.info("count[mesh]: table %d B > replicate budget — keeping "
-                 "bucket-sharded only (routed correction)",
-                 sp.bloom.width * 4)
-        merge_keep_sharded(table, mesh)
-        merged = None
-    tag = f"count[mesh {D}x{S}]"
-    shard = cfg.shard_host_spectrum is not False and mesh.n_hosts > 1
-    if cfg.exact_spectrum and shard:
-        host, hist, exact_cap, t = _shard_host_spectrum(
-            cfg, host_ex, k, mesh, n_reads, n_kmers, tag)
-    else:
-        if cfg.exact_spectrum:
-            host_ex = allgather_spectrum(*host_ex, mesh)
+        if sp.bloom.width * 4 <= REPLICATE_TABLE_BUDGET:
+            merged = merge_and_replicate(table, mesh)   # (width,) replicated
         else:
-            host_ex = None
-        host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
-                                                 n_kmers, tag=tag)
-    m.stage_end("count", reads=n_reads, kmers=n_kmers, threshold=t,
-                route_retries=LAST_COUNT_RETRIES,
-                route_safety_end=sp.route_safety)
+            # past the replication budget the table stays bucket-sharded
+            # only; correction takes the routed-query path
+            log.info("count[mesh]: table %d B > replicate budget — keeping "
+                     "bucket-sharded only (routed correction)",
+                     sp.bloom.width * 4)
+            merge_keep_sharded(table, mesh)
+            merged = None
+        tag = f"count[mesh {D}x{S}]"
+        shard = cfg.shard_host_spectrum is not False and mesh.n_hosts > 1
+        if cfg.exact_spectrum and shard:
+            host, hist, exact_cap, t = _shard_host_spectrum(
+                cfg, host_ex, k, mesh, n_reads, n_kmers, tag)
+        else:
+            if cfg.exact_spectrum:
+                host_ex = allgather_spectrum(*host_ex, mesh)
+            else:
+                host_ex = None
+            host, hist, exact_cap, t = _finish_count(
+                cfg, host_ex, k, n_reads, n_kmers, tag=tag)
+        st.set(reads=n_reads, kmers=n_kmers, threshold=t,
+               route_retries=LAST_COUNT_RETRIES,
+               route_safety_end=sp.route_safety)
     log.info("count[mesh]: threshold=%d", t)
     return CountState(cfg, merged, hist, t, n_reads, n_kmers, host=host,
                       exact_cap=exact_cap, sharded=sp, sharded_table=table)

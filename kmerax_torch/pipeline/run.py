@@ -35,11 +35,12 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
                             device=device)
         result = {"threshold": state.threshold, **stats}
         if out_fasta is not None:
-            m.stage_start("assemble")
-            n_unitigs = assemble_to_fasta(cfg, state, out_fasta,
-                                          corrected_fastq=out_fastq,
-                                          device=device, metrics=m)
-            m.stage_end("assemble", unitigs=n_unitigs)
+            # no profiler: the re-count inside opens a traced count stage
+            with m.stage("assemble") as st:
+                n_unitigs = assemble_to_fasta(cfg, state, out_fasta,
+                                              corrected_fastq=out_fastq,
+                                              device=device, metrics=m)
+                st.set(unitigs=n_unitigs)
             result["unitigs"] = n_unitigs
             # one host: rank 0 aligns; across hosts every rank joins
             # the per-host align

@@ -126,10 +126,10 @@ def run_two_pass(cfg: KmeraxConfig, paths, out_fastq,
                     result["unitigs"] = sum(1 for ln in f
                                             if ln.startswith(">"))
             else:
-                m.stage_start("assemble")
-                n = assemble_to_fasta(cfg2, state2, out_fasta, device=device,
-                                      metrics=m)
-                m.stage_end("assemble", unitigs=n)
+                with m.stage("assemble") as st:
+                    n = assemble_to_fasta(cfg2, state2, out_fasta,
+                                          device=device, metrics=m)
+                    st.set(unitigs=n)
                 _mark_done(workdir, "assemble")
                 result["unitigs"] = n
     finally:
