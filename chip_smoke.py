@@ -152,10 +152,12 @@ C1_COVERAGE = 50
 C1_ERROR = 0.01
 C1_CFG = dict(k=31, bloom_log2_width=29, exact_capacity=1 << 27,
               batch_reads=4096, max_read_len=160)
-# config 1's peak device memory since the count step became one K1 launch
-# (int8 wire); the 2-bit wire's device unpack may add its uint8
-# temporaries, up to 4 bytes a base of one batch
-C1_PEAK_BYTES = 4_833_182_208
+# config 1's peak device memory since the count merges its exact spectrum
+# on the card (spectrum/exact.py::merge_pending; the last merge sorts ~76 M
+# resident and ~62 M new rows beside the 2 GiB table); the 2-bit wire's
+# device unpack may add its uint8 temporaries, up to 4 bytes a base of one
+# batch
+C1_PEAK_BYTES = 9_610_426_368
 C1_UNPACK_BYTES = 4 * 4096 * 160
 # BASELINE config 3 (acceptance.py CONFIGS[3]) on a 1,000,000 bp genome
 # (chr21 is 46,709,983 bp; the CPU record ACCEPTANCE_full_c3.json has
@@ -554,6 +556,7 @@ def phase_kernels(device=DEVICE):
         torch.cuda.empty_cache()
         if scheme == "hash":
             recs.append(_check_k4(rng, device))
+    _check_merge(rng, device)
     for h, m in zip(recs, mz):
         num(f"phase2 {h['name']} at k=31, hash / minimizer scheme: kernel "
             f"{h['kernel_ms']} / {m['kernel_ms']} ms (profiler), "
@@ -561,6 +564,75 @@ def phase_kernels(device=DEVICE):
             f"{h['bound_ms']:.4f} ({h['bound_by']}) / {m['bound_ms']:.4f} "
             f"({m['bound_by']}) ms")
     return recs + mz + _check_p16(rng, device, recs[0]["library_ms"])
+
+
+# one exact flush of the benchmark's ecoli cell: 15 batches of 4,096 reads
+# x (160 - 31 + 1) pending rows, onto a resident spectrum of 5 M distinct
+# (the cell ends near 7.66 M); ~8 % sentinel rows (150 bp reads in 160)
+MERGE_PENDING, MERGE_RESIDENT = 15 * 4096 * 130, 5_000_000
+MERGE_SENTINEL = 0.08
+
+
+def _check_merge(rng, device) -> None:
+    """The count's device merge (spectrum/exact.py::merge_pending) at one
+    flush of the ecoli cell, k = 31 and 63: equal to np_merge_counted on
+    the host rows, and its wall a flush (the first call apart) beside the
+    host merge's."""
+    import numpy as np
+    import torch
+    from kmerax_torch.spectrum.exact import (
+        SENTINEL_WORD, merge_pending, np_merge_counted, rows_to_keys,
+        spectrum_to_host,
+    )
+
+    for k in (31, 63):
+        w = (k + 15) // 16
+
+        def rows(n):
+            r = rng.integers(0, 2**32, size=(n, w), dtype=np.uint64)
+            r = r.astype(np.uint32)
+            r[:, -1] &= np.uint32((1 << (2 * k - 32 * (w - 1))) - 1)
+            return r
+
+        uniq, counts = np_merge_counted(
+            rows(MERGE_RESIDENT), rng.integers(1, 60, MERGE_RESIDENT))
+        n_old = MERGE_PENDING // 2
+        pend = np.concatenate([
+            uniq[rng.integers(0, len(uniq), n_old)],
+            rows(MERGE_PENDING - n_old)])
+        pend[rng.random(MERGE_PENDING) < MERGE_SENTINEL] = SENTINEL_WORD
+        keys = rows_to_keys(torch.from_numpy(uniq.view(np.int32)).to(device))
+        cnt = torch.from_numpy(counts).to(device)
+        dpend = torch.from_numpy(pend.view(np.int32)).to(device)
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = merge_pending(keys, cnt, dpend)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got_u, got_c = spectrum_to_host(out[0], out[1], w)
+        d2h = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new = pend[~np.all(pend == SENTINEL_WORD, axis=1)]
+        want_u, want_c = np_merge_counted(
+            np.concatenate([uniq, new]),
+            np.concatenate([counts, np.ones(len(new), np.int64)]))
+        host = time.perf_counter() - t0
+        if not (np.array_equal(got_u, want_u)
+                and np.array_equal(got_c, want_c)
+                and out[2] == len(uniq) + len(new)):
+            raise AssertionError(f"merge_pending != np_merge_counted at "
+                                 f"k={k}")
+        del keys, cnt, dpend, out
+        torch.cuda.empty_cache()
+        num(f"phase2 merge_pending k={k}: {MERGE_PENDING} pending rows "
+            f"({len(new)} valid) onto {len(uniq)} resident -> "
+            f"{len(want_u)} distinct, == np_merge_counted; wall a flush "
+            f"{1e3 * float(np.median(walls[1:])):.2f} ms (first call "
+            f"{1e3 * walls[0]:.2f} ms), copy back {1e3 * d2h:.1f} ms; the "
+            f"host merge {host:.2f} s")
 
 
 def _check_p16(rng, device, index_add_ms):

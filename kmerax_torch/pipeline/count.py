@@ -7,10 +7,12 @@ int8 rows; else as int8), then one call of kernel K1 on it, which
 extracts the k-mers, canonicalizes and hashes them, inserts
 them into the Bloom table and appends their raw canonical rows to a device
 pending buffer (on the CPU its plain version runs the same steps in
-torch). When the buffer fills, and once at the end, the host merges it into
-the sorted exact spectrum (np_merge_counted). Counts are
-order-free sums, so any flush schedule gives the same spectrum
-(DESIGN.md §13). The stage ends with the histogram and the threshold.
+torch). When the buffer is full and the next batch comes, and once at the
+end, its rows merge into the sorted exact spectrum, which stays on the
+stage's device through the pass (spectrum/exact.py::merge_pending); the
+last flush copies it to the host, once. Counts are order-free sums, so any
+flush schedule gives the same spectrum (DESIGN.md §13). The stage ends
+with the histogram and the threshold.
 A spectrum with fewer distinct k-mers than `exact_capacity` also has the
 JAX package's sentinel-padded device form (`CountState.exact`), built only
 when a caller asks for it.
@@ -18,7 +20,8 @@ when a caller asks for it.
 On a mesh of more than one device (`cfg.mesh_data * cfg.mesh_bucket > 1`)
 `run_count` takes `run_count_sharded`: each rank counts its rows of every
 batch into its range shard of the table through the bucket all-to-all and
-kernel K1r (spectrum/sharded.py). Across N > 1 hosts with per-host I/O
+kernel K1r (spectrum/sharded.py), and the host merges each rank's
+pending rows (np_merge_counted). Across N > 1 hosts with per-host I/O
 each host parses only its own input shards (io/shard.py), the hosts trade
 (has_more, n_local) every batch to stay in lockstep, and by default the
 leaders range-shard the exact spectrum over the hosts
@@ -40,7 +43,7 @@ from kmerax_torch.io.batcher import BackgroundBatcher
 from kmerax_torch.spectrum.bloom import BloomParams, make_table
 from kmerax_torch.spectrum.bloom_kernels import bloom_insert
 from kmerax_torch.spectrum.exact import (
-    SENTINEL_WORD, np_merge_counted, sentinel_rows,
+    merge_pending, np_merge_counted, sentinel_rows, spectrum_to_host,
 )
 from kmerax_torch.spectrum.histogram import solid_threshold
 from kmerax_torch.spectrum.host import HostSpectrum
@@ -60,8 +63,8 @@ REPLICATE_TABLE_BUDGET = 1 << 29        # 512 MB
 # baseline in steady state)
 LAST_COUNT_RETRIES = 0
 LAST_ROUTE_SAFETY = None
-# host merges of the pending buffer in the last count, one-device or mesh
-# (this rank's)
+# merges of the pending buffer in the last count: on the device in a
+# one-device count, on the host in a mesh count (this rank's)
 LAST_COUNT_FLUSHES = 0
 
 
@@ -155,7 +158,7 @@ def to_device_batch(batch, device, pack: bool = False):
 
 
 def _count_steps(cfg: KmeraxConfig, k: int):
-    """The Bloom parameters and the host flush for this config.
+    """The Bloom parameters and the exact flush for this config.
 
     Returns (params, exact_flush, P, pend_rows): a batch's step is
     bloom_insert(table, bases, params, pending, off), which writes its
@@ -168,16 +171,19 @@ def _count_steps(cfg: KmeraxConfig, k: int):
     pend_m = max(1, (cfg.exact_capacity // 2) // pend_rows)
     P = pend_m * pend_rows
 
-    def exact_flush(uniq_np, counts_np, pending, off):
-        """One D2H of the raw rows + a host sort/merge."""
+    def exact_flush(keys, counts, pending, off, last=False):
+        """Merge pending[:off] into the device spectrum (keys, counts);
+        the `last` flush also copies it back: (uniq (M, W) uint32, counts
+        (M,) int64) on the host."""
+        global LAST_COUNT_FLUSHES
         with tracing.span("count.flush"):
-            pend = pending[:off].cpu().numpy().view(np.uint32)
-            pend = pend[~np.all(pend == np.uint32(SENTINEL_WORD), axis=1)]
-            rows = np.concatenate([uniq_np, pend], axis=0)
-            tracing.count("count.merge_rows", len(rows))
-            wts = np.concatenate(
-                [counts_np, np.ones(len(pend), dtype=np.int64)])
-            return np_merge_counted(rows, wts)
+            keys, counts, n_rows = merge_pending(keys, counts, pending[:off])
+            tracing.count("count.merge_rows", n_rows)
+            tracing.count("count.resident_flushes", 1)
+            LAST_COUNT_FLUSHES += 1
+            if last:
+                return spectrum_to_host(keys, counts, pending.shape[1])
+            return keys, counts
 
     return params, exact_flush, P, pend_rows
 
@@ -195,11 +201,15 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     params, exact_flush, P, pend_rows = _count_steps(cfg, k)
     table = make_table(params, device)
     pending = None
-    host_ex = None
+    ex = host_ex = None
     off = 0
     if cfg.exact_spectrum:
         w = num_words(k)
-        host_ex = (np.zeros((0, w), np.uint32), np.zeros(0, np.int64))
+        # the resident spectrum: merge_pending's (M, ceil(W/2)) int64 keys
+        # and (M,) int64 counts, on the device until the stage's end
+        ex = (torch.zeros((0, (w + 1) // 2), dtype=torch.int64,
+                          device=device),
+              torch.zeros(0, dtype=torch.int64, device=device))
         pending = sentinel_rows(P, w, device)
 
     n_reads = 0
@@ -209,18 +219,20 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
         for batch in BackgroundBatcher(paths, cfg.batch_reads,
                                        cfg.max_read_len):
             bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
+            # a full buffer merges when the next batch needs it, so the
+            # stage's last flush (which copies the spectrum back) always
+            # has rows
+            if off == P:
+                ex = exact_flush(*ex, pending, off)
+                off = 0
             n_kmers += bloom_insert(table, bases, params, pending, off)
             if pending is not None:
                 off += pend_rows
-                if off == P:
-                    host_ex = exact_flush(*host_ex, pending, off)
-                    LAST_COUNT_FLUSHES += 1
-                    off = 0
             n_reads += batch.n
-        if host_ex is not None and off > 0:
-            host_ex = exact_flush(*host_ex, pending, off)
-            LAST_COUNT_FLUSHES += 1
-        del pending
+        if ex is not None:
+            host_ex = (exact_flush(*ex, pending, off, last=True) if off
+                       else spectrum_to_host(*ex, w))
+        del pending, ex
         n_kmers = int(n_kmers)
         host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
                                                  n_kmers)

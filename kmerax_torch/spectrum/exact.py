@@ -1,8 +1,13 @@
 """Exact k-mer spectrum helpers (port of kmerax/spectrum/exact.py).
 
-Raw canonical k-mer rows collect in a device pending buffer; the host merges
-them into the sorted spectrum (`np_merge_counted`, a numpy copy of the JAX
-package's function: it cannot be imported from there without JAX).
+Raw canonical k-mer rows collect in a device pending buffer. A one-device
+count merges them into the sorted spectrum on that device (`merge_pending`:
+the JAX package's `merge_sorted` role; its host merge answered a TPU's padded
+1-D sorts, which an H100's radix sort does not have) and copies the spectrum
+to the host once, at the stage's end (`spectrum_to_host`). The mesh count merges
+on the host (`np_merge_counted`, a numpy copy of the JAX package's function:
+it cannot be imported from there without JAX), which the tests also hold
+`merge_pending` to.
 `searchsorted_words` and `lookup_sorted` search the sentinel-padded sorted
 form (`HostSpectrum.to_device`) word by word, as the JAX package does, for
 `correct --use-exact`.
@@ -60,6 +65,70 @@ def np_merge_counted(rows, weights):
     sw = weights[order]
     out = np.add.reduceat(sw, np.nonzero(is_start)[0])
     return srows[is_start], out
+
+
+def rows_to_keys(rows: torch.Tensor) -> torch.Tensor:
+    """(n, W) int32 rows -> (n, ceil(W/2)) int64 keys: each pair of 32-bit
+    words, lo word first, read as one little-endian int64 (an odd W gets a
+    zero top word). Column 0 holds the least significant words."""
+    if rows.shape[1] % 2:
+        rows = torch.cat([rows, rows.new_zeros((rows.shape[0], 1))], dim=1)
+    return rows.contiguous().view(torch.int64)
+
+
+def spectrum_to_host(keys: torch.Tensor, counts: torch.Tensor, w: int):
+    """merge_pending's spectrum -> (uniq (M, w) uint32 rows, counts (M,)
+    int64) on the host: np_merge_counted's form."""
+    rows = keys.cpu().numpy().view(np.uint32)[:, :w]
+    return np.ascontiguousarray(rows), counts.cpu().numpy()
+
+
+_SIGN = -(1 << 63)      # int64's sign bit
+
+
+def _sort_order(keys: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts (n, K) int64 keys into DESIGN.md §6 order:
+    unsigned, most significant column first. An LSD pass a column, stable,
+    each column's sign bit flipped so that signed order is unsigned order
+    (a lo column spans all 64 bits)."""
+    order = None
+    for c in range(keys.shape[1]):
+        col = keys[:, c] if order is None else keys[order, c]
+        o = torch.sort(col ^ _SIGN, stable=True).indices
+        order = o if order is None else order[o]
+    return order
+
+
+def merge_pending(keys: torch.Tensor, counts: torch.Tensor,
+                  pending: torch.Tensor):
+    """Merge raw pending rows into a resident sorted spectrum, on their
+    device.
+
+    keys: (M, K) int64 (rows_to_keys form, sorted, distinct), counts: (M,)
+    int64; pending: (n, W) int32 rows as K1 wrote them, sentinel rows among
+    them. Returns (keys, counts, rows): the merged spectrum in the same form
+    and the rows merged (resident + valid new). Equal to np_merge_counted
+    on the host rows with weight 1 a new row. Two syncs: the sentinel
+    filter's and the compaction's, which sizes the output.
+    """
+    # a row is the sentinel only if every word is (as np_merge_counted's
+    # callers filter); no canonical k-mer's top word is all ones
+    new = rows_to_keys(pending[(pending != -1).any(dim=1)])
+    keys = torch.cat([keys, new])
+    wts = torch.cat([counts, counts.new_ones(new.shape[0])])
+    # each temporary goes as soon as it is used: the peak is a few copies
+    # of the rows
+    del new
+    order = _sort_order(keys)
+    keys, wts = keys[order], wts[order]
+    del order
+    start = torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
+    start[1:] = (keys[1:] != keys[:-1]).any(dim=1)
+    run = torch.cumsum(start, 0) - 1
+    n_rows = keys.shape[0]
+    keys = keys[start]
+    del start
+    return keys, wts.new_zeros(keys.shape[0]).index_add_(0, run, wts), n_rows
 
 
 def searchsorted_words(uniq_words: torch.Tensor, query_words: torch.Tensor):

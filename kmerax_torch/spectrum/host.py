@@ -1,9 +1,11 @@
 """Host-resident exact k-mer spectrum (numpy copy of the parts of
 kmerax/spectrum/host.py that the main path uses; that module cannot be
-imported without JAX). The port keeps the spectrum on the host: one sorted
-(N, W) uint32 array + int64 counts, accumulated by the count stage's
-pending-buffer flushes (pipeline/count.py), with the histogram for the
-solid threshold and the solid rows for assembly. Packed keys and their
+imported without JAX). After the count the port keeps the spectrum on the
+host: one sorted (N, W) uint32 array + int64 counts. A one-device count
+merges its pending rows on the device through the pass and copies the
+spectrum here once, at the stage's end (spectrum/exact.py::merge_pending);
+a mesh count's flushes merge on the host (np_merge_counted). With it go
+the histogram for the solid threshold and the solid rows for assembly. Packed keys and their
 search serve the assembly joins (graph/partitioned.py). `padded` and
 `to_device` give the sentinel-padded form the JAX package keeps on its
 device (`CountState.exact` there): the checkpoint saves it and `correct

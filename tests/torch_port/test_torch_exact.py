@@ -1,11 +1,14 @@
-"""Correction against the exact spectrum (`correct --use-exact`): the
-port's word-by-word binary search of the sentinel-padded sorted spectrum
-and its padded form against the JAX package's, and the CLI's corrected
-FASTQ byte for byte. Exact: tolerance 0."""
+"""The exact spectrum: the count's device merge of pending rows
+(`merge_pending`) against the host merge, and correction against the
+spectrum (`correct --use-exact`): the port's word-by-word binary search of
+the sentinel-padded sorted spectrum and its padded form against the JAX
+package's, and the CLI's corrected FASTQ byte for byte. Exact: tolerance
+0."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from kmerax.cli import main as j_main
 from kmerax.spectrum.exact import lookup_sorted as j_lookup_sorted
@@ -13,7 +16,8 @@ from kmerax.spectrum.exact import searchsorted_words as j_searchsorted
 from kmerax.spectrum.host import HostSpectrum as JHostSpectrum
 from kmerax_torch.cli import main
 from kmerax_torch.spectrum.exact import SENTINEL_WORD, lookup_sorted, \
-    np_merge_counted, searchsorted_words
+    merge_pending, np_merge_counted, rows_to_keys, searchsorted_words, \
+    spectrum_to_host
 from kmerax_torch.spectrum.host import HostSpectrum
 from sim import ecoli_like, make_fastq
 
@@ -26,6 +30,44 @@ def _rows(rng, n_rows, k):
     rows = rows.astype(np.uint32)
     rows[:, -1] &= np.uint32((1 << (2 * k - 32 * (w - 1))) - 1)
     return rows
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("k", [15, 25, 31, 33, 47, 49, 63])
+def test_merge_pending_equals_host_merge(k, resident):
+    """merge_pending == np_merge_counted to the byte (rows, counts, dtype,
+    order) on pending rows with repeats, rows already resident, sentinel
+    rows and, at W >= 3, lo words with the top bit set and clear, onto an
+    empty or a resident spectrum."""
+    rng = np.random.default_rng(k + 100 * resident)
+    w = (k + 15) // 16
+    base = _rows(rng, 60, k)
+    if resident:
+        r = np.concatenate([base, _rows(rng, 200, k)])
+        uniq, counts = np_merge_counted(r, rng.integers(1, 9, len(r)))
+    else:
+        uniq, counts = base[:0], np.zeros(0, np.int64)
+    pend = np.concatenate([
+        base[rng.integers(0, len(base), 400)], _rows(rng, 150, k),
+        np.full((50, w), SENTINEL_WORD, np.uint32)])
+    if w >= 3:
+        pend[:100, 1] |= np.uint32(1 << 31)
+        pend[100:200, 1] &= np.uint32((1 << 31) - 1)
+    pend = pend[rng.permutation(len(pend))]
+    keys = rows_to_keys(torch.from_numpy(uniq.view(np.int32)))
+    got_k, got_c, n_rows = merge_pending(
+        keys, torch.from_numpy(counts), torch.from_numpy(pend.view(np.int32)))
+    new = pend[~np.all(pend == SENTINEL_WORD, axis=1)]
+    rows = np.concatenate([uniq, new])
+    want_u, want_c = np_merge_counted(
+        rows, np.concatenate([counts, np.ones(len(new), np.int64)]))
+    got_u, got_c = spectrum_to_host(got_k, got_c, w)
+    assert (got_u.dtype, got_c.dtype) == (np.uint32, np.int64)
+    assert got_u.flags.c_contiguous and got_u.shape == want_u.shape
+    np.testing.assert_array_equal(got_u, want_u)
+    np.testing.assert_array_equal(got_c, want_c)
+    assert n_rows == len(rows)
+    assert want_c.sum() > len(want_c)           # repeats merged
 
 
 @pytest.mark.parametrize("k", [25, 31, 63])

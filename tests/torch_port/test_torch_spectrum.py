@@ -4,6 +4,8 @@ correct round's window solidity) against the XLA path and the Pallas
 kernels in interpret mode, and run_count's table, spectrum, histogram and
 threshold. Exact: tolerance 0."""
 
+import json
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -20,9 +22,12 @@ from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.spectrum import bloom
 from kmerax_torch.spectrum.bloom_kernels import blocks_lanepack, \
     bloom_insert, bloom_query_solid, bloom_query_solid_plain, insert_plain
-from kmerax_torch.spectrum.exact import np_merge_counted
+from kmerax_torch.spectrum.exact import SENTINEL_WORD, np_merge_counted, \
+    spectrum_to_host
 from kmerax_torch.spectrum.histogram import solid_threshold
+from kmerax_torch.pipeline import count as count_mod
 from kmerax_torch.pipeline.count import run_count
+from kmerax_torch.utils.metrics import MetricsWriter
 from kmerax_torch.utils import cuda
 from sim import ecoli_like, make_fastq
 
@@ -198,6 +203,52 @@ def test_run_count_matches_jax(count_fastq, k, cap):
     ts = run_count(KmeraxConfig(**kw), [count_fastq], device="cpu")
     np.testing.assert_array_equal(n(ts.bloom_table),
                                   np.asarray(js.bloom_table))
+    np.testing.assert_array_equal(ts.host.uniq, js.host.uniq)
+    np.testing.assert_array_equal(ts.host.counts, js.host.counts)
+    np.testing.assert_array_equal(ts.hist, js.hist)
+    assert (ts.threshold, ts.n_reads, ts.n_kmers) == \
+        (js.threshold, js.n_reads, js.n_kmers)
+
+
+@pytest.mark.parametrize("k", [15, 31, 33, 63])
+def test_run_count_merges_on_the_device(count_fastq, tmp_path, k):
+    """A count of 3000 bp at 30x whose capacity of 2^13 merges the pending
+    rows after every 64-read batch: every flush merges on the device
+    (`count.resident_flushes` == LAST_COUNT_FLUSHES), each merge equals
+    the host merge of the same rows, `count.merge_rows` is the host path's
+    sum, and the spectrum, histogram and threshold are the JAX package's."""
+    kw = dict(k=k, bloom_log2_width=17, batch_reads=64, max_read_len=100,
+              exact_capacity=1 << 13)
+    merged = []
+    merge = count_mod.merge_pending
+
+    def checked(keys, counts, pending):
+        w = pending.shape[1]
+        uniq, cnt = spectrum_to_host(keys, counts, w)
+        new = pending.numpy().view(np.uint32)
+        new = new[~np.all(new == SENTINEL_WORD, axis=1)]
+        rows = np.concatenate([uniq, new])
+        want = np_merge_counted(rows, np.concatenate(
+            [cnt, np.ones(len(new), np.int64)]))
+        out = merge(keys, counts, pending)
+        for got, exp in zip(spectrum_to_host(*out[:2], w), want):
+            np.testing.assert_array_equal(got, exp)
+        merged.append(len(rows))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(count_mod, "merge_pending", checked)
+        mp.setattr(count_mod, "np_merge_counted", None)  # not on this path
+        ts = run_count(KmeraxConfig(**kw), [count_fastq], device="cpu",
+                       metrics=MetricsWriter(str(tmp_path / "m.jsonl")))
+    js = j_run_count(JConfig(**kw), [count_fastq])
+    flushes = count_mod.LAST_COUNT_FLUSHES
+    assert flushes == len(merged) >= 3
+    (rec,) = [json.loads(ln) for ln in open(tmp_path / "m.jsonl")]
+    assert rec["counters"] == {"count.resident_flushes": flushes,
+                               "count.merge_rows": sum(merged)}
+    assert rec["spans"]["count.flush"][1] == flushes
+    assert ts.host.uniq.dtype == np.uint32
     np.testing.assert_array_equal(ts.host.uniq, js.host.uniq)
     np.testing.assert_array_equal(ts.host.counts, js.host.counts)
     np.testing.assert_array_equal(ts.hist, js.hist)

@@ -33,9 +33,9 @@ TIMING = {"wall_s", "ts", "reads_per_s", "kmers_per_s", "index_s"}
 
 def _pipeline(tmp, fq, traced: bool) -> dict:
     """One `pipeline --validate` with --metrics; each count pass's flushes
-    (LAST_COUNT_FLUSHES) and the rows handed to np_merge_counted."""
+    (LAST_COUNT_FLUSHES) and the rows merge_pending merged."""
     passes = []
-    orig_count, orig_merge = count_mod.run_count, count_mod.np_merge_counted
+    orig_count, orig_merge = count_mod.run_count, count_mod.merge_pending
 
     def run_count(*a, **kw):
         passes.append({"flushes": 0, "merge_rows": 0})
@@ -43,9 +43,10 @@ def _pipeline(tmp, fq, traced: bool) -> dict:
         passes[-1]["flushes"] = count_mod.LAST_COUNT_FLUSHES
         return state
 
-    def merge(rows, wts):
-        passes[-1]["merge_rows"] += len(rows)
-        return orig_merge(rows, wts)
+    def merge(keys, counts, pending):
+        out = orig_merge(keys, counts, pending)
+        passes[-1]["merge_rows"] += out[2]
+        return out
 
     with pytest.MonkeyPatch.context() as mp:
         if traced:
@@ -54,7 +55,7 @@ def _pipeline(tmp, fq, traced: bool) -> dict:
             mp.delenv("KMERAX_TRACE_DIR", raising=False)
         for mod in (count_mod, run_mod):
             mp.setattr(mod, "run_count", run_count)
-        mp.setattr(count_mod, "np_merge_counted", merge)
+        mp.setattr(count_mod, "merge_pending", merge)
         res = run_pipeline(CFG, [str(fq)], str(tmp / "c.fastq"),
                            str(tmp / "c.fa"), str(tmp / "m.jsonl"),
                            validate=True, device="cpu")
