@@ -11,6 +11,8 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..reference.compare import check_job
+
 ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -49,6 +51,7 @@ def cell(name: str, root: Path = ROOT) -> Cell:
         config = json.load(f)
     with open(root / "benchmark" / "mixes" / f"{w['traffic']}.json") as f:
         mix = json.load(f)
+    check_job(config, mix["stages"])
     return Cell(name, w["chips"], config, mix,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
                 [m for m in bench["per_layer"] if _reports(m, name)])

@@ -1,11 +1,14 @@
 """One job: the CLI's `main` in this process, as a user runs it, with the
 count passes' results captured for the comparison.
 
-The capture wraps `run_count` where the pipeline and the assembly's
-re-count look it up; it keeps what a count pass returns (the exact
-spectrum on the host, the histogram, the threshold, and the first pass's
-Bloom table, which the pipeline holds to its end anyway) and reads
-`LAST_COUNT_FLUSHES` after each pass. It adds no work to the job."""
+The capture wraps `run_count` where the one-pass pipeline, the assembly's
+re-count and the two-pass pipeline (`pipeline --k2`) look it up; it keeps
+what a count pass returns (the exact spectrum on the host, the histogram,
+the threshold, and the first pass's Bloom table) and reads
+`LAST_COUNT_FLUSHES` after each pass. It adds no work to the job. A
+one-pass pipeline holds its first table to its end anyway; a two-pass one
+frees it before pass 2 counts, but the capture keeps it alive through pass
+2, so the memory peak of a two-pass cell includes it."""
 
 from __future__ import annotations
 
@@ -46,14 +49,14 @@ class Recorder:
     def __init__(self):
         from kmerax_torch.pipeline import count as count_mod
         from kmerax_torch.pipeline import run as run_mod
+        from kmerax_torch.pipeline import twopass as twopass_mod
 
         self._count_mod = count_mod
-        self._orig = count_mod.run_count
-        self._mods = (count_mod, run_mod)
+        self._mods = (count_mod, run_mod, twopass_mod)
+        self._origs = [m.run_count for m in self._mods]
         self._counts, self._flushes = [], []
-        wrapped = self._wrap(self._orig)
-        for m in self._mods:
-            m.run_count = wrapped
+        for m, orig in zip(self._mods, self._origs):
+            m.run_count = self._wrap(orig)
 
     def _wrap(self, orig):
         def run_count(*a, **kw):
@@ -75,8 +78,8 @@ class Recorder:
         return out
 
     def close(self):
-        for m in self._mods:
-            m.run_count = self._orig
+        for m, orig in zip(self._mods, self._origs):
+            m.run_count = orig
 
 
 # the configuration's program settings the CLI takes from a --config TOML
@@ -97,8 +100,8 @@ def _toml(cfg: dict, path: str) -> str:
 
 def argv(cfg: dict, mix: dict, inputs: list, outdir: str,
          device: str) -> list:
-    """The job's CLI arguments: the configuration's program settings, the
-    mix's job form, outputs under `outdir`."""
+    """The job's CLI arguments: the configuration's program settings (with
+    `k2`, a two-pass job), the mix's job form, outputs under `outdir`."""
     os.makedirs(outdir, exist_ok=True)
     a = [mix["command"], "--config",
          _toml(cfg, os.path.join(outdir, "settings.toml")),
@@ -106,6 +109,7 @@ def argv(cfg: dict, mix: dict, inputs: list, outdir: str,
          *[os.path.join(outdir, f"corrected_{i + 1}.fastq")
            for i in range(len(inputs))],
          "-k", str(cfg["k"]),
+         *(["--k2", str(cfg["k2"])] if cfg.get("k2") else []),
          "--bloom-log2-width", str(cfg["bloom_log2_width"]),
          "--exact-capacity", str(cfg["exact_capacity"]),
          "--batch-reads", str(cfg["batch_reads"]),

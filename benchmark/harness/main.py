@@ -223,8 +223,8 @@ def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
         result["device"].update(busy_s=busy, window_s=profiled.wall_s)
         result["breakdown"] = {
             "device_ops": trace.device_ops(profiled.trace),
-            "idle_gaps": trace.idle_gaps(profiled.trace,
-                                         _untraced(profiled))}
+            "idle_gaps": trace.idle_gaps(profiled.trace, _untraced(
+                profiled, recount_in_assemble=not cfg.get("k2")))}
     else:
         for m in c.end_to_end:
             v = {"reads_per_s": n_reads * len(window) / window_s,
@@ -250,34 +250,34 @@ def _count_out(x):
     from ..reference.compare import CountOut
 
     u = x.uniq.astype(np.int64)
-    v = np.zeros(len(u), np.int64)
-    for i in range(u.shape[1]):
-        v |= u[:, i] << (32 * i)
+    if u.shape[1] <= 2:     # k <= 31: one int64, as the reference holds it
+        v = np.zeros(len(u), np.int64)
+        for i in range(u.shape[1]):
+            v |= u[:, i] << (32 * i)
+    else:                   # the (M, W) words as they are
+        v = u
     table = None if x.table is None else x.table.cpu()
     return CountOut(torch.from_numpy(v), torch.from_numpy(
         x.counts.astype(np.int64)), table, x.hist, x.threshold, x.n_reads,
         x.n_kmers)
 
 
-def _untraced(job) -> list:
-    """[label, seconds] of the profiled job's time outside the stage
-    traces: each stage's wall past its trace's span, the assembly's graph
-    (its wall less its re-count's), and what lies between stages."""
-    spans = {}
-    for t in job.trace:
-        spans.setdefault(t.stage, []).append(t.span_us * 1e-6)
+def _untraced(job, recount_in_assemble: bool) -> list:
+    """[label, seconds] of the profiled job's time that no stage trace
+    covers: the assembly's graph, which is never profiled, and what lies
+    between stages. Each stage's trace spans the whole stage (the export
+    lies after it). In a one-pass job the assembly's re-count runs inside
+    the assemble stage and its record comes just before it: the graph is
+    the assemble wall less that count's. In a two-pass job the count
+    before it is pass 2, a stage of its own."""
     out, prev, covered = [], None, 0.0
     for s in job.stages:
-        st = s["stage"]
-        if st == "assemble":
-            g = s["wall_s"] - (prev["wall_s"] if prev and
-                               prev["stage"] == "count" else 0.0)
+        if s["stage"] == "assemble":
+            g = s["wall_s"] - (prev["wall_s"] if recount_in_assemble and prev
+                               and prev["stage"] == "count" else 0.0)
             out.append(["assemble: graph on the host (untraced)", g])
             covered += g
-        elif spans.get(st):
-            sp = spans[st].pop(0)
-            out.append([f"{st}: outside the profiled loop (with the "
-                        "trace's export)", s["wall_s"] - sp])
+        else:
             covered += s["wall_s"]
         prev = s
     out.append(["between stages (CLI, spectrum hand-over)",

@@ -114,9 +114,11 @@ def idle_gaps(traces: list[StageTrace], untraced: list, n: int = 10) -> list:
     gaps = [list(x) for x in untraced]
     for t in traces:
         m = t.merged()
-        for (_, e0), (s1, _) in zip(m[:-1], m[1:]):
-            gaps.append([_label(t, e0, s1), (s1 - e0) * 1e-6])
-    return sorted(gaps, key=lambda g: -g[1])[:n]
+        gaps += [[(t, e0, s1), (s1 - e0) * 1e-6]
+                 for (_, e0), (s1, _) in zip(m[:-1], m[1:])]
+    # label the longest only: a label scans every host operation
+    return [[_label(*g[0]) if isinstance(g[0], tuple) else g[0], g[1]]
+            for g in sorted(gaps, key=lambda g: -g[1])[:n]]
 
 
 def _label(t: StageTrace, a: float, b: float) -> str:

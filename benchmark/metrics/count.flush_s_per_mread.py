@@ -1,6 +1,7 @@
 """Seconds of the count stages' exact-spectrum flushes (span `count.flush`,
-pipeline/count.py: the pending rows' D2H, the sentinel filter and the
-host merge, every flush, the last included) per million reads they
+pipeline/count.py: on one device the merge of the pending rows into the
+spectrum on the card, and in a pass's last flush the spectrum's copy back
+to the host; every flush, the last included) per million reads they
 counted, over the window's jobs (host clock)."""
 
 SPAN = "count.flush"

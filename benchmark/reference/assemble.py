@@ -12,7 +12,8 @@ each emitted from its least oriented node when that reads forward.
 A chain's sequence is its first k-mer and the last base of every later
 one; a unitig is the lesser of a sequence and its reverse complement; the
 set is sorted by decreasing length, then by sequence. The edge tables are
-whole-array torch; the walks follow the oracle step by step.
+whole-array torch; the walks follow the oracle step by step. A k-mer is one
+int64 at k <= 31 and a row of W words above (words.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import words
 from .kmers import check_k, revcomp
 
 _COMP = bytes.maketrans(b"ACGT", b"TGCA")
@@ -48,28 +50,67 @@ def _succ(nodes: torch.Tensor, k: int) -> np.ndarray:
     return torch.where(internal, 2 * v + o2, -1).reshape(-1).cpu().numpy()
 
 
+def _succ_words(nodes: torch.Tensor, k: int) -> np.ndarray:
+    """`_succ` over (C, W) word rows."""
+    C, W = nodes.shape
+    dev = nodes.device
+    oriented = torch.stack([nodes, words.revcomp(nodes, k)], 1)  # (C, 2, W)
+    w = words.extend(oriented[:, :, None, :].expand(C, 2, 4, W),
+                     torch.arange(4, device=dev), k)            # (C, 2, 4, W)
+    rw = words.revcomp(w, k)
+    fwd = words.less_equal(w, rw)
+    canon = torch.where(fwd[..., None], w, rw)
+    at, found = words.lookup(nodes, canon)                      # (C, 2, 4)
+    outdeg = found.sum(2)
+    b = torch.argmax(found.to(torch.int8), 2)
+    v = at.gather(2, b[..., None])[..., 0]
+    o2 = (~fwd).gather(2, b[..., None])[..., 0].to(torch.int64)
+    back = outdeg[v, 1 - o2]
+    u = torch.arange(C, device=dev)[:, None]
+    internal = (outdeg == 1) & (v != u) & (back == 1)
+    return torch.where(internal, 2 * v + o2, -1).reshape(-1).cpu().numpy()
+
+
 def unitigs(uniq: torch.Tensor, counts: torch.Tensor, t: int,
             k: int) -> list[bytes]:
     """Unitig sequences (ASCII) of the k-mers with count >= t."""
-    check_k(k)
+    if k > 31:
+        words.check_k(k)
+    else:
+        check_k(k)
     nodes = uniq[counts >= t]
-    C = nodes.numel()
+    C = nodes.shape[0]
     if C == 0:
         return []
+    if k > 31:
+        succ = _succ_words(nodes, k)
+        oriented = torch.stack([nodes, words.revcomp(nodes, k)], 1)
+        oriented = oriented.reshape(-1, nodes.shape[1]).cpu().numpy()
+        last = (oriented[:, 0] & 3).astype(np.uint8)
+        p = np.arange(k - 1, -1, -1)
+        return _walk(succ, lambda e: ((oriented[e][p // 16] >> (
+            2 * (p % 16))) & 3).astype(np.uint8), last)
     succ = _succ(nodes, k)
     oriented = torch.stack([nodes, revcomp(nodes, k)], 1).reshape(-1)
     oriented = oriented.cpu().numpy()
     last = (oriented & 3).astype(np.uint8)
     shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.int64)
-    has_pred = np.zeros(2 * C, bool)
+    return _walk(succ, lambda e: ((oriented[e] >> shifts) & 3).astype(
+        np.uint8), last)
+
+
+def _walk(succ: np.ndarray, first, last: np.ndarray) -> list[bytes]:
+    """The unitigs of the oriented nodes' internal successors `succ`:
+    `first(e)` gives oriented node e's bases, `last[e]` its last base."""
+    n = len(succ)
+    has_pred = np.zeros(n, bool)
     has_pred[succ[succ >= 0]] = True
     succ_l = succ.tolist()
-    visited = bytearray(2 * C)
+    visited = bytearray(n)
     seqs = set()
 
     def emit(chain):
-        first = (oriented[chain[0]] >> shifts) & 3
-        s = _ACGT[np.concatenate([first.astype(np.uint8),
+        s = _ACGT[np.concatenate([first(chain[0]),
                                   last[np.asarray(chain[1:], np.int64)]])]
         s = s.tobytes()
         seqs.add(min(s, s.translate(_COMP)[::-1]))
@@ -85,7 +126,7 @@ def unitigs(uniq: torch.Tensor, counts: torch.Tensor, t: int,
             chain.append(cur)
             visited[cur] = 1
         emit(chain)
-    for e in range(2 * C):
+    for e in range(n):
         if visited[e]:
             continue
         cyc = []

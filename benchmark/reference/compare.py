@@ -2,7 +2,9 @@
 numbers that compare a run's outputs with them, each of which must be 0.
 
 Every comparison is exact: the configurations state exact k-mer counts and
-outputs byte-identical to DESIGN.md's algorithms. The control
+outputs byte-identical to DESIGN.md's algorithms. A configuration with
+`k2` is a two-pass job (`pipeline --k2`): count at k, correct, re-count the
+corrected reads at k2 and assemble at k2. The control
 (`control_outputs`) breaks the first of those guarantees the way a faster
 count would be tempted to: it takes each distinct k-mer's count from the
 counting Bloom (the least of its counters) instead of counting it exactly.
@@ -16,13 +18,13 @@ import numpy as np
 import torch
 
 from ..sim import fastq_bytes
-from . import align, assemble, correct, spectrum
+from . import align, assemble, correct, spectrum, words
 
 @dataclass
 class CountOut:
     """One count pass: the exact spectrum, the Bloom counters (where they
     are compared), histogram, threshold and totals."""
-    uniq: torch.Tensor              # (M,) int64 ascending
+    uniq: torch.Tensor              # (M,) int64, or (M, W) words at W > 2
     counts: torch.Tensor            # (M,) int64
     table: torch.Tensor | None
     hist: list
@@ -51,8 +53,19 @@ def control_outputs(ds, cfg: dict, stages: list, device) -> Outputs:
     return _outputs(ds, cfg, stages, device, exact=False)
 
 
-def _count(reads, cfg, device, exact: bool, bloom: bool) -> CountOut:
-    k, lw, d = cfg["k"], cfg["bloom_log2_width"], cfg["bloom_hashes"]
+def check_job(cfg: dict, stages: list) -> None:
+    """Raises for a job the reference cannot follow: a two-pass job runs
+    count, correct and the re-count at k2, and never validates."""
+    if cfg.get("k2") and ("validate" in stages
+                          or not {"count", "correct"} <= set(stages)):
+        raise ValueError(f"a two-pass job (k2 = {cfg['k2']}) runs count, "
+                         f"correct and [assemble], not {stages}: the CLI "
+                         "does not validate two-pass jobs")
+
+
+def _count(reads, cfg, device, exact: bool, bloom: bool,
+           k: int) -> CountOut:
+    lw, d = cfg["bloom_log2_width"], cfg["bloom_hashes"]
     sp = spectrum.count(reads, k, lw if (bloom or not exact) else None, d,
                         device)
     counts, hist, t = sp.counts, sp.hist, sp.threshold
@@ -65,8 +78,9 @@ def _count(reads, cfg, device, exact: bool, bloom: bool) -> CountOut:
 
 
 def _outputs(ds, cfg, stages, device, exact: bool) -> Outputs:
+    check_job(cfg, stages)
     k = cfg["k"]
-    first = _count(ds.bases, cfg, device, exact, bloom=True)
+    first = _count(ds.bases, cfg, device, exact, bloom=True, k=k)
     out = Outputs([first], [])
     if "correct" not in stages:
         return out
@@ -84,10 +98,16 @@ def _outputs(ds, cfg, stages, device, exact: bool) -> Outputs:
         edits += int(e.sum())
         edited += int((e > 0).sum())
     out.result.update(edits=edits, edited_reads=edited)
+    if cfg.get("k2"):
+        # pass 2 (pipeline/twopass.py): the corrected reads at k2, whether
+        # or not the job assembles
+        k = cfg["k2"]
+    elif "assemble" not in stages:
+        return out
+    recount = _count(fixed, cfg, device, exact, bloom=False, k=k)
+    out.counts.append(recount)
     if "assemble" not in stages:
         return out
-    recount = _count(fixed, cfg, device, exact, bloom=False)
-    out.counts.append(recount)
     seqs = assemble.unitigs(recount.uniq, recount.counts, recount.threshold,
                             k)
     out.fasta = assemble.fasta_text(seqs)
@@ -101,6 +121,10 @@ def _spectrum_diff(p: CountOut, r: CountOut) -> int:
     """k-mers in one spectrum only, plus shared k-mers whose counts
     differ."""
     pu, ru = p.uniq.to(r.uniq.device), r.uniq
+    if pu.shape[1:] != ru.shape[1:]:
+        return pu.shape[0] + ru.shape[0]    # k-mers of another k: none shared
+    if ru.dim() == 2:
+        pu, ru = words.ranks(pu, ru)
     pc = p.counts.to(r.uniq.device)
     if pu.numel() == ru.numel() and torch.equal(pu, ru):
         return int((pc != r.counts).sum())
