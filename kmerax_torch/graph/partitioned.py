@@ -6,9 +6,11 @@ discovery streams over contiguous partitions of them:
 
   per partition of solid nodes:
     device: 8 candidate extensions per node (4 bases x 2 orientations),
-            canonicalized (`_extensions`, torch)
+            canonicalized (`_extensions`, torch), with the rows' H2D and
+            the candidates' copy back (span `assemble.extend`)
     host:   membership joins against the packed solid key array
-            (np.searchsorted)
+            (np.searchsorted) and the successor select (span
+            `assemble.join`; counter `assemble.join_queries`, 8 a node)
 
 Chain pointer-doubling and emission then run on the host (graph/unitig.py).
 The numpy parts are copies of the JAX package's, which cannot be imported
@@ -80,7 +82,9 @@ def solid_edges_host(suniq: np.ndarray, k: int, device,
     finalizes (assemble_host).
     """
     C, W = suniq.shape
-    skeys = pack_rows(suniq)
+    # the keys' packing is join work; the span's entries count partitions
+    with tracing.span("assemble.join", n=0):
+        skeys = pack_rows(suniq)
     outdeg = np.zeros((C, 2), np.int32)
     succ_v = np.zeros((C, 2), np.int32)
     succ_o = np.zeros((C, 2), np.int32)
@@ -89,32 +93,37 @@ def solid_edges_host(suniq: np.ndarray, k: int, device,
         if pi % n_procs != pid:
             continue
         e = min(s + partition_rows, C)
-        rows = torch.as_tensor(suniq[s:e].astype(np.int64), device=device)
-        cand, is_fwd = _extensions(rows, k)
-        cand = cand.cpu().numpy().astype(np.uint32)   # (n, 2, 4, W)
-        is_fwd = is_fwd.cpu().numpy()
         n = e - s
-        q = pack_rows(cand.reshape(-1, W))
-        idx = searchsorted_packed(skeys, q)
-        idx = np.minimum(idx, max(C - 1, 0))
-        if skeys.ndim == 1:
-            found = skeys[idx] == q
-        else:
-            found = np.all(skeys[idx] == q, axis=1)
-        found = found.reshape(n, 2, 4)
-        idx = idx.reshape(n, 2, 4).astype(np.int32)
-        # successor select: iterate b in 0..3, a later existing b overwrites
-        for o in range(2):
-            ex = found[:, o, :]
-            outdeg[s:e, o] = ex.sum(axis=1)
-            v = np.zeros(n, np.int32)
-            osel = np.zeros(n, np.int32)
-            for b in range(4):
-                hit = ex[:, b]
-                v = np.where(hit, idx[:, o, b], v)
-                osel = np.where(hit, np.where(is_fwd[:, o, b], 0, 1), osel)
-            succ_v[s:e, o] = v
-            succ_o[s:e, o] = osel
+        with tracing.span("assemble.extend"):
+            rows = torch.as_tensor(suniq[s:e].astype(np.int64),
+                                   device=device)
+            cand, is_fwd = _extensions(rows, k)
+            cand = cand.cpu().numpy().astype(np.uint32)   # (n, 2, 4, W)
+            is_fwd = is_fwd.cpu().numpy()
+        tracing.count("assemble.join_queries", 8 * n)
+        with tracing.span("assemble.join"):
+            q = pack_rows(cand.reshape(-1, W))
+            idx = searchsorted_packed(skeys, q)
+            idx = np.minimum(idx, max(C - 1, 0))
+            if skeys.ndim == 1:
+                found = skeys[idx] == q
+            else:
+                found = np.all(skeys[idx] == q, axis=1)
+            found = found.reshape(n, 2, 4)
+            idx = idx.reshape(n, 2, 4).astype(np.int32)
+            # successor select: iterate b in 0..3, a later hit overwrites
+            for o in range(2):
+                ex = found[:, o, :]
+                outdeg[s:e, o] = ex.sum(axis=1)
+                v = np.zeros(n, np.int32)
+                osel = np.zeros(n, np.int32)
+                for b in range(4):
+                    hit = ex[:, b]
+                    v = np.where(hit, idx[:, o, b], v)
+                    osel = np.where(hit, np.where(is_fwd[:, o, b], 0, 1),
+                                    osel)
+                succ_v[s:e, o] = v
+                succ_o[s:e, o] = osel
 
     partial = {"succ_v": succ_v, "succ_o": succ_o, "outdeg": outdeg}
     return partial if n_procs > 1 else finalize_edges(partial)
@@ -146,6 +155,7 @@ def assemble_host(host: HostSpectrum, t: int, k: int, device,
         sidx = host.solid_indices(t)
         suniq = np.ascontiguousarray(host.uniq[sidx])
         C = len(suniq)
+        tracing.count("assemble.solid_nodes", C)
         log.info("assemble[host]: %d solid k-mers", C)
         if C == 0:
             return []

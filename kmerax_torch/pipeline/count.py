@@ -236,7 +236,7 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
         n_kmers = int(n_kmers)
         host, hist, exact_cap, t = _finish_count(cfg, host_ex, k, n_reads,
                                                  n_kmers)
-        st.set(reads=n_reads, kmers=n_kmers, threshold=t)
+        st.set(reads=n_reads, kmers=n_kmers, threshold=t, k=k)
     log.info("count: threshold=%d", t)
     return CountState(cfg, table, hist, t, n_reads, n_kmers, host=host,
                       exact_cap=exact_cap, counter=params.counter)
@@ -489,7 +489,7 @@ def run_count_sharded(cfg: KmeraxConfig, paths, *, device,
                 host_ex = None
             host, hist, exact_cap, t = _finish_count(
                 cfg, host_ex, k, n_reads, n_kmers, tag=tag)
-        st.set(reads=n_reads, kmers=n_kmers, threshold=t,
+        st.set(reads=n_reads, kmers=n_kmers, threshold=t, k=k,
                route_retries=LAST_COUNT_RETRIES,
                route_safety_end=sp.route_safety)
     log.info("count[mesh]: threshold=%d", t)

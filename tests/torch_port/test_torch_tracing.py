@@ -29,6 +29,9 @@ N_READS = 600
 BATCHES = math.ceil(N_READS / CFG.batch_reads)
 # the record's fields that time the work
 TIMING = {"wall_s", "ts", "reads_per_s", "kmers_per_s", "index_s"}
+# spans inside another span of the same stage (graph/partitioned.py: the
+# edge discovery's device extension and host join)
+NESTED = {"assemble.extend", "assemble.join"}
 
 
 def _pipeline(tmp, fq, traced: bool) -> dict:
@@ -118,9 +121,10 @@ def test_stage_records_carry_their_spans(runs, stage, traced):
     recs = [r for r in run["records"] if r["stage"] == stage]
     assert len(recs) == (2 if stage == "count" else 1)
     for r in recs:
-        # the spans time parts of the stage: they sum to no more than its
-        # wall (wall_s is rounded to 4 places)
-        assert sum(s for s, _ in r["spans"].values()) <= r["wall_s"] + 5e-5
+        # the spans time parts of the stage: those not nested in another
+        # sum to no more than its wall (wall_s is rounded to 4 places)
+        assert sum(s for name, (s, _) in r["spans"].items()
+                   if name not in NESTED) <= r["wall_s"] + 5e-5
     n = {name: [r["spans"][name][1] for r in recs]
          for name in recs[0]["spans"]}
     if stage == "count":
@@ -134,7 +138,8 @@ def test_stage_records_carry_their_spans(runs, stage, traced):
         assert n["correct.step"] == n["correct.write"] == [BATCHES]
         assert recs[0]["counters"] == {}
     elif stage == "assemble":
-        assert n == {"assemble.edges": [1], "assemble.chains": [1],
+        assert n == {"assemble.edges": [1], "assemble.extend": [1],
+                     "assemble.join": [1], "assemble.chains": [1],
                      "assemble.emit": [1]}
     else:
         assert n["align.contig_index"] == n["align.seed_table"] == [1]
