@@ -557,6 +557,8 @@ def phase_kernels(device=DEVICE):
         if scheme == "hash":
             recs.append(_check_k4(rng, device))
     _check_merge(rng, device)
+    recs.append(_check_k5(rng, device))
+    _check_k5_partitions(rng, device)
     for h, m in zip(recs, mz):
         num(f"phase2 {h['name']} at k=31, hash / minimizer scheme: kernel "
             f"{h['kernel_ms']} / {m['kernel_ms']} ms (profiler), "
@@ -633,6 +635,154 @@ def _check_merge(rng, device) -> None:
             f"{1e3 * float(np.median(walls[1:])):.2f} ms (first call "
             f"{1e3 * walls[0]:.2f} ms), copy back {1e3 * d2h:.1f} ms; the "
             f"host merge {host:.2f} s")
+
+
+# K5's shapes (k, solid nodes C), one partition each: the chr21 cell's
+# graph after its re-count (W = 2) and the two-pass cell's at k2 (W = 4),
+# as the benchmark's jobs have them (~0.47 M and ~0.77 M solid k-mers)
+K5_SHAPES = ((31, 470_000), (63, 775_000))
+# and config 1's graph (W = 2, ~4.6 M solid k-mers) as the main path joins
+# it: one launch a 2^20-row partition, the last one partial
+K5_PARTITIONED = (31, C1_GENOME, 1 << 20)
+
+
+def _solid_rows(rng, k: int, C: int, device):
+    """About C sorted distinct canonical k-mers ((C', W) uint32) of a random
+    genome of 0.8 C bases (a path) and of 2k-base pieces of it with one
+    substitution in the middle each (tips and bubbles, so nodes have up to
+    four successors)."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import canonical_words
+    from kmerax_torch.core.kmers import extract_kmers
+    from kmerax_torch.spectrum.exact import np_merge_counted
+
+    G = int(0.8 * C)
+    genome = rng.integers(0, 4, G).astype(np.int64)
+    R = (C - G) // k
+    at = rng.integers(0, G - 2 * k, R)
+    pieces = genome[at[:, None] + np.arange(2 * k)]
+    pieces[:, k] = (pieces[:, k] + rng.integers(1, 4, R)) % 4
+    rows = []
+    for seqs in (genome[None], pieces):
+        words, valid = extract_kmers(torch.from_numpy(seqs).to(device), k)
+        canon, _ = canonical_words(words[valid], k)
+        rows.append(canon.cpu().numpy().astype(np.uint32))
+    rows = np.concatenate(rows)
+    return np_merge_counted(rows, np.ones(len(rows), np.int64))[0]
+
+
+def _check_k5(rng, device) -> dict:
+    """K5 (`solid_join`) == its plain version at K5_SHAPES, one launch over
+    a partition of every node, and its times there: the kernel's, the
+    plain version's and, at W <= 2, `torch.searchsorted`'s on the keys
+    packed into one int64 (the lower bounds alone) as library_ms. Bound:
+    the candidates as 32-bit words (the int64 words the kernel is handed
+    carry 32 bits each), is_fwd, the keys (each once) and the outputs over
+    the HBM rate, or (ceil(log2 C) + 1) steps of W + 3 int32 operations a
+    search. Returns the record at the two-pass cell's shape, with
+    `by_shape` holding both."""
+    import math
+
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import M32
+    from kmerax_torch.graph.join_kernels import lower_bound_plain, \
+        solid_join, solid_join_plain
+    from kmerax_torch.graph.partitioned import _extensions
+
+    by_shape = {}
+    for k, C in K5_SHAPES:
+        uniq = _solid_rows(rng, k, C, device)
+        C, W = uniq.shape
+        keys = torch.from_numpy(uniq.view(np.int32)).to(device)
+        cand, fwd = _extensions(keys.to(torch.int64) & M32, k)
+
+        def edges():
+            return [torch.zeros((C, 2), dtype=torch.int32, device=device)
+                    for _ in range(3)]
+
+        got, want = edges(), edges()
+        solid_join(keys, cand, fwd, *got, 0)
+        solid_join_plain(keys, cand, fwd, *want, 0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K5 != plain at k={k}, C={C}")
+        deg = got[0].cpu().numpy()
+        times = _timed(lambda: solid_join(keys, cand, fwd, *got, 0),
+                       lambda: solid_join_plain(keys, cand, fwd, *want, 0),
+                       "solid_join")
+        lib_ms = None
+        if W <= 2:
+            def packed(words):
+                words = words.to(torch.int64) & M32
+                if W == 2:
+                    words = (words[..., 1:] << 32) | words[..., :1]
+                return words[..., 0] ^ -(1 << 63)   # signed order = unsigned
+            kp, qp = packed(keys), packed(cand).reshape(-1)
+            lb = lower_bound_plain(keys.to(torch.int64) & M32,
+                                   cand.reshape(-1, W))
+            if not torch.equal(torch.searchsorted(kp, qp), lb):
+                raise AssertionError(f"torch.searchsorted on the packed "
+                                     f"keys != the lower bounds at k={k}")
+            lib_ms = _per_launch_ms(lambda: torch.searchsorted(kp, qp))[0]
+        nq = 8 * C
+        nbytes = nq * W * 4 + nq + C * W * 4 + 3 * 2 * C * 4
+        ops = nq * (math.ceil(math.log2(C)) + 1) * (W + 3)
+        rec = _record("solid_join", "kmerax_torch/csrc/graph.cu",
+                      "none: the JAX package joins on the host "
+                      "(kmerax/graph/partitioned.py::solid_edges_host)",
+                      0, times, nbytes, ops, None, lib_ms)
+        _say_times(f"phase2 K5 solid_join k={k} C={C} W={W}", rec)
+        num(f"phase2 K5 k={k}: == plain; out-degrees 0/1/2+: "
+            f"{int((deg == 0).sum())} / {int((deg == 1).sum())} / "
+            f"{int((deg >= 2).sum())} of {2 * C} (node, orientation)s")
+        by_shape[f"k={k} C={C}"] = {key: rec[key] for key in (
+            "ms", "kernel_ms", "host_ms", "wrapper_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+        del keys, cand, fwd, got, want
+        torch.cuda.empty_cache()
+    rec["by_shape"] = by_shape
+    return rec
+
+
+def _check_k5_partitions(rng, device) -> None:
+    """K5 at K5_PARTITIONED, one launch a partition at rows 0, P, 2P, ..
+    as graph/partitioned.py::solid_edges_host makes them, == the plain
+    version over all the nodes at once: the whole edge arrays."""
+    import numpy as np
+    import torch
+    from kmerax_torch.core.codec import M32
+    from kmerax_torch.graph.join_kernels import solid_join, solid_join_plain
+    from kmerax_torch.graph.partitioned import _extensions
+
+    k, C, part = K5_PARTITIONED
+    uniq = _solid_rows(rng, k, C, device)
+    C = len(uniq)
+    keys = torch.from_numpy(uniq.view(np.int32)).to(device)
+    got = [torch.zeros((C, 2), dtype=torch.int32, device=device)
+           for _ in range(3)]
+    want = [torch.zeros_like(t) for t in got]
+    starts = range(0, C, part)
+    for s in starts:
+        cand, fwd = _extensions(keys[s:s + part].to(torch.int64) & M32, k)
+        solid_join(keys, cand, fwd, *got, s)
+    del cand, fwd
+    cand, fwd = _extensions(keys.to(torch.int64) & M32, k)
+    solid_join_plain(keys, cand, fwd, *want, 0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        bad = [name for name, a, b in zip(("outdeg", "succ_v", "succ_o"),
+                                          got, want) if not torch.equal(a, b)]
+        raise AssertionError(f"K5 in {len(starts)} partitions of {part} rows "
+                             f"!= plain over all {C} nodes at k={k}: {bad}")
+    num(f"phase2 K5 k={k} C={C}: {len(starts)} launches at rows 0, {part}, "
+        f".., {starts[-1]} (the last {C - starts[-1]} rows) == plain over "
+        f"all the nodes at once")
+    del keys, cand, fwd, got, want
+    if device != "cpu":
+        torch.cuda.empty_cache()
 
 
 def _check_p16(rng, device, index_add_ms):
@@ -2117,7 +2267,8 @@ def phase_config1(workdir: str, recs=None,
         "pipeline", "--in", *paths, "--out-fastq", *outs, "--out-fasta",
         fasta, "--metrics", metrics, "--device", DEVICE, *C1_ARGS])
     launches = dict(cuda.LAUNCHES)
-    _print_stages("phase4", _stages(metrics))
+    stages = _stages(metrics)
+    _print_stages("phase4", stages)
     num(f"phase4 end to end: {wall:.2f} s, {n_reads / wall:.1f} reads/s; "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes")
     num(f"phase4 kernel launches on the main path: {launches}")
@@ -2127,6 +2278,7 @@ def phase_config1(workdir: str, recs=None,
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
+    _check_join("phase4", launches, stages["assemble"][0])
 
     before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
     num(f"phase4 accuracy: errors_before {before}, errors_remaining "
@@ -2163,6 +2315,24 @@ def phase_config1(workdir: str, recs=None,
 
 
 # ---------------------------------------------------------------- phase 5
+
+def _check_join(tag: str, launches: dict, asm: dict) -> None:
+    """The graph's join ran through K5, one launch a partition, and every
+    join query was counted on the card (the assemble record's spans and
+    counters)."""
+    parts = asm["spans"]["assemble.extend"][1]
+    ct = asm["counters"]
+    num(f"{tag} K5 solid_join: {launches['solid_join']} launches, {parts} "
+        f"partitions; join queries {ct['assemble.join_queries']}, on the "
+        f"card {ct.get('assemble.join_on_card')}")
+    if not 0 < launches["solid_join"] == parts:
+        raise AssertionError(f"{tag}: K5 launched {launches['solid_join']} "
+                             f"times for {parts} partitions")
+    if ct.get("assemble.join_on_card") != ct["assemble.join_queries"]:
+        raise AssertionError(f"{tag}: the card joined "
+                             f"{ct.get('assemble.join_on_card')} of "
+                             f"{ct['assemble.join_queries']} queries")
+
 
 def phase_config3(workdir: str):
     """Config 3 through `pipeline --validate`, then the same corrected reads
@@ -2211,6 +2381,7 @@ def phase_config3(workdir: str):
     for name in ONE_DEVICE_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
+    _check_join("phase5", launches, stages["assemble"][0])
 
     before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
     num(f"phase5 accuracy: errors_before {before}, errors_remaining "
@@ -2335,6 +2506,8 @@ def phase_config5(workdir: str):
     for name in MAIN_PATH_KERNELS:
         if runs["config5_pipeline_k2"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
+    _check_join("phase6 (a)", runs["config5_pipeline_k2"],
+                st["assemble"][0])
     if res["reads"] != n_reads or abs(bases - C5_GENOME) > 0.05 * C5_GENOME:
         raise AssertionError(f"bad two-pass result {res}, {bases} bases")
     _bars("phase6 (a)", a_fq, noisy, truth, seq_off)
@@ -2406,6 +2579,8 @@ def phase_config5(workdir: str):
         "assemble", "--spectrum", os.path.join(work, "count_k2"), "--out",
         c_fa, "--device", DEVICE, *C5_ARGS, "-k", "63"])   # the last -k
     runs["config5_assemble_spectrum"] = dict(cuda.LAUNCHES)
+    if runs["config5_assemble_spectrum"]["solid_join"] <= 0:
+        raise AssertionError("K5 never launched by assemble --spectrum")
     _same_bytes(c_fa, a_fa, "phase6 (c) assemble --spectrum")
     num(f"phase6 (c) correct --spectrum: {cwall:.2f} s, "
         f"{n_reads / cwall:.1f} reads/s, {stats}; assemble --spectrum -k 63: "

@@ -4,13 +4,17 @@ kmerax/graph/partitioned.py and graph/build.py::shift_append_base).
 Only the SOLID k-mers are materialized for the graph stage, and edge
 discovery streams over contiguous partitions of them:
 
-  per partition of solid nodes:
-    device: 8 candidate extensions per node (4 bases x 2 orientations),
-            canonicalized (`_extensions`, torch), with the rows' H2D and
-            the candidates' copy back (span `assemble.extend`)
-    host:   membership joins against the packed solid key array
-            (np.searchsorted) and the successor select (span
-            `assemble.join`; counter `assemble.join_queries`, 8 a node)
+  once:  the solid keys to the device as their 32-bit words, and three
+         (C, 2) int32 edge arrays there (span `assemble.join`, no entry)
+  per partition of solid nodes, on the device:
+    8 candidate extensions per node (4 bases x 2 orientations),
+    canonicalized (`_extensions`, torch) from the partition's slice of the
+    keys, and on a card their sync (span `assemble.extend`); then the
+    membership join and the successor select (graph/join_kernels.py:
+    kernel K5 on a card, its plain version on the CPU) into the edge
+    arrays, and on a card its sync (span `assemble.join`; counter
+    `assemble.join_queries`, 8 a node)
+  once:  the edge arrays' copy back (span `assemble.join`, no entry)
 
 Chain pointer-doubling and emission then run on the host (graph/unitig.py).
 The numpy parts are copies of the JAX package's, which cannot be imported
@@ -30,9 +34,9 @@ import torch
 
 from kmerax_torch.core.codec import M32, canonical_words, num_words, \
     revcomp_words
+from kmerax_torch.graph.join_kernels import solid_join
 from kmerax_torch.graph.unitig import chains_from_edges_np, emit_unitigs
-from kmerax_torch.spectrum.host import HostSpectrum, pack_rows, \
-    searchsorted_packed
+from kmerax_torch.spectrum.host import HostSpectrum
 from kmerax_torch.utils import tracing
 from kmerax_torch.utils.logging import get_logger
 
@@ -81,51 +85,33 @@ def solid_edges_host(suniq: np.ndarray, k: int, device,
     partial succ_v/succ_o/outdeg; the caller sums them over the hosts and
     finalizes (assemble_host).
     """
-    C, W = suniq.shape
-    # the keys' packing is join work; the span's entries count partitions
+    C = len(suniq)
+    dev = torch.device(device)
+    # the keys' upload is join work; the span's entries count partitions
     with tracing.span("assemble.join", n=0):
-        skeys = pack_rows(suniq)
-    outdeg = np.zeros((C, 2), np.int32)
-    succ_v = np.zeros((C, 2), np.int32)
-    succ_o = np.zeros((C, 2), np.int32)
+        keys = torch.from_numpy(
+            np.ascontiguousarray(suniq, np.uint32).view(np.int32)).to(dev)
+        edges = {name: torch.zeros((C, 2), dtype=torch.int32, device=dev)
+                 for name in ("outdeg", "succ_v", "succ_o")}
 
     for pi, s in enumerate(range(0, C, partition_rows)):
         if pi % n_procs != pid:
             continue
         e = min(s + partition_rows, C)
-        n = e - s
         with tracing.span("assemble.extend"):
-            rows = torch.as_tensor(suniq[s:e].astype(np.int64),
-                                   device=device)
-            cand, is_fwd = _extensions(rows, k)
-            cand = cand.cpu().numpy().astype(np.uint32)   # (n, 2, 4, W)
-            is_fwd = is_fwd.cpu().numpy()
-        tracing.count("assemble.join_queries", 8 * n)
+            cand, is_fwd = _extensions(keys[s:e].to(torch.int64) & M32, k)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        tracing.count("assemble.join_queries", 8 * (e - s))
         with tracing.span("assemble.join"):
-            q = pack_rows(cand.reshape(-1, W))
-            idx = searchsorted_packed(skeys, q)
-            idx = np.minimum(idx, max(C - 1, 0))
-            if skeys.ndim == 1:
-                found = skeys[idx] == q
-            else:
-                found = np.all(skeys[idx] == q, axis=1)
-            found = found.reshape(n, 2, 4)
-            idx = idx.reshape(n, 2, 4).astype(np.int32)
-            # successor select: iterate b in 0..3, a later hit overwrites
-            for o in range(2):
-                ex = found[:, o, :]
-                outdeg[s:e, o] = ex.sum(axis=1)
-                v = np.zeros(n, np.int32)
-                osel = np.zeros(n, np.int32)
-                for b in range(4):
-                    hit = ex[:, b]
-                    v = np.where(hit, idx[:, o, b], v)
-                    osel = np.where(hit, np.where(is_fwd[:, o, b], 0, 1),
-                                    osel)
-                succ_v[s:e, o] = v
-                succ_o[s:e, o] = osel
+            solid_join(keys, cand, is_fwd, edges["outdeg"], edges["succ_v"],
+                       edges["succ_o"], s)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        del cand, is_fwd
 
-    partial = {"succ_v": succ_v, "succ_o": succ_o, "outdeg": outdeg}
+    with tracing.span("assemble.join", n=0):
+        partial = {name: t.cpu().numpy() for name, t in edges.items()}
     return partial if n_procs > 1 else finalize_edges(partial)
 
 
@@ -145,9 +131,10 @@ def finalize_edges(partial: dict) -> dict:
 def assemble_host(host: HostSpectrum, t: int, k: int, device,
                   partition_rows: int = 1 << 20, n_procs: int = 1,
                   pid: int = 0) -> list[str]:
-    """Unitig sequences from a host-resident spectrum. Device memory is
-    bounded by one edge-discovery partition; the solid set, the edge tables
-    and the chains stay on the host. With `n_procs` > 1 every host leader
+    """Unitig sequences from a host-resident spectrum. Device memory holds
+    the solid keys (4 W bytes a node), the edge tables (24 bytes a node)
+    and one edge-discovery partition's candidates; the chains run on the
+    host over the tables' copy. With `n_procs` > 1 every host leader
     holds the same replicated spectrum and calls this: each discovers the
     edges of its partitions, and an element-wise sum over the hosts
     (unowned partitions contributed zeros) completes the tables."""

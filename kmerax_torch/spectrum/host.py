@@ -6,7 +6,9 @@ merges its pending rows on the device through the pass and copies the
 spectrum here once, at the stage's end (spectrum/exact.py::merge_pending);
 a mesh count's flushes merge on the host (np_merge_counted). With it go
 the histogram for the solid threshold and the solid rows for assembly. Packed keys and their
-search serve the assembly joins (graph/partitioned.py). `padded` and
+search serve the join across hosts (graph/sharded.py; the one-host join runs
+on the device, graph/join_kernels.py) and the key ranges of a sharded host
+spectrum (spectrum/host_sharded.py). `padded` and
 `to_device` give the sentinel-padded form the JAX package keeps on its
 device (`CountState.exact` there): the checkpoint saves it and `correct
 --use-exact` searches it.
