@@ -2159,7 +2159,8 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
     from kmerax_torch.ops.correct import correct_batch
     from kmerax_torch.ops.correct_kernels import make_eval_fn, \
         make_window_fn
-    from kmerax_torch.pipeline.count import _count_steps, send_batch, unwire
+    from kmerax_torch.io.wire import send_batch, unwire
+    from kmerax_torch.pipeline.count import _count_steps
     from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import bloom_insert
     from kmerax_torch.spectrum.exact import sentinel_rows
@@ -2638,7 +2639,8 @@ def _child_count_window(arg) -> dict:
     from kmerax_torch.config import KmeraxConfig
     from kmerax_torch.core.codec import num_words
     from kmerax_torch.io.batcher import BackgroundBatcher
-    from kmerax_torch.pipeline.count import _count_steps, send_batch, unwire
+    from kmerax_torch.io.wire import send_batch, unwire
+    from kmerax_torch.pipeline.count import _count_steps
     from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import bloom_insert
     from kmerax_torch.spectrum.exact import sentinel_rows
@@ -3028,25 +3030,33 @@ def phase_bench(workdir: str, recs=None):
     torch.cuda.reset_peak_memory_stats()
     # keep the acceptance run's count (its arrays, copied to the host at
     # the end of run_count, its wall and its host merges) for the sharded
-    # count's check below
+    # count's check below: wrap the run_count of every module a stage
+    # calls it through, as the benchmark's recorder does
     import kmerax_torch.pipeline.count as count
-    real_count, kept = count.run_count, []
+    import kmerax_torch.pipeline.run as run_mod
+    import kmerax_torch.pipeline.twopass as twopass_mod
+    mods = (count, run_mod, twopass_mod)
+    real_counts, kept = [mod.run_count for mod in mods], []
 
-    def keep_count(*a, **kw):
-        t0 = time.perf_counter()
-        state = real_count(*a, **kw)
-        torch.cuda.synchronize()
-        kept.append({"wall": time.perf_counter() - t0,
-                     "flushes": count.LAST_COUNT_FLUSHES,
-                     "want": _count_arrays(state)})
-        return state
-    count.run_count = keep_count
+    def keep(real_count):
+        def keep_count(*a, **kw):
+            t0 = time.perf_counter()
+            state = real_count(*a, **kw)
+            torch.cuda.synchronize()
+            kept.append({"wall": time.perf_counter() - t0,
+                         "flushes": count.LAST_COUNT_FLUSHES,
+                         "want": _count_arrays(state)})
+            return state
+        return keep_count
+    for mod, real_count in zip(mods, real_counts):
+        mod.run_count = keep(real_count)
     try:
         rep, wall = _cli("phase7", workdir, [
             "bench", "--acceptance", "2", "--scale", C2_SCALE, "--device",
             DEVICE])
     finally:
-        count.run_count = real_count
+        for mod, real_count in zip(mods, real_counts):
+            mod.run_count = real_count
     runs["config2_acceptance"] = dict(cuda.LAUNCHES)
     try:
         st = _stages(os.path.join(rep["workdir"], "metrics.jsonl"))

@@ -11,14 +11,17 @@ device. It imports torch and never jax or kmerax.
 
   core/      2-bit codec, k-mer extraction, hashing, minimizers (torch,
              int64 words)
-  io/        FASTQ/FASTA streaming, batching, the 2-bit wire (numpy, torch)
+  io/        FASTQ/FASTA streaming, batching, the 2-bit wire and a batch's
+             trip to the device, per-host shards and unit plan (numpy,
+             torch)
   spectrum/  counting Bloom (kernels K1, K1r, K2), exact host spectrum,
              the bucket-sharded spectrum of a mesh
   dist/      the mesh: process groups over torch.distributed, launch
   ops/       error correction (kernel K3), seed index and banded
              alignment (kernel K4)
-  graph/     unitig assembly, host path
-  pipeline/  count / correct / align / run stages, checkpoint, twopass
+  graph/     unitig assembly of a given spectrum, host path (kernel K5)
+  pipeline/  count / correct / align / run stages (run re-counts for the
+             assembly), checkpoint, twopass
   bench/     benchmark presets, acceptance configs, read simulator
   cli        `python -m kmerax_torch.cli count|correct|assemble|pipeline|
              align|bench ...`

@@ -284,44 +284,18 @@ def _timed_stages(*args) -> tuple[dict, float]:
 def _run_stages(cfg, spec, paths, out_fastq, out_fasta, metrics, workdir,
                 device) -> dict:
     """The config's stages on `device`, or on this rank of the current
-    mesh (rank 0 aligns and writes); returns the stage results."""
-    from kmerax_torch.dist.mesh import is_writer
-    from kmerax_torch.graph.unitig import assemble_to_fasta
-    from kmerax_torch.pipeline.align import run_align
-    from kmerax_torch.pipeline.correct import run_correct
-    from kmerax_torch.pipeline.count import run_count
+    mesh (rank 0 aligns and writes): pipeline/run.py::run_pipeline, with
+    the seed-extend validation (DESIGN.md §10b) wherever it assembles, or
+    pipeline/twopass.py::run_two_pass for a two-pass config; returns the
+    stage results."""
+    from kmerax_torch.pipeline.run import run_pipeline
     from kmerax_torch.pipeline.twopass import run_two_pass
-    from kmerax_torch.utils.metrics import MetricsWriter
 
+    # per-file outputs (paired-end R1/R2) through run_correct's group mode
+    out = out_fastq[0] if len(paths) == 1 else out_fastq
     if spec.k2:
-        return run_two_pass(cfg, paths, out_fastq[0] if len(paths) == 1
-                            else out_fastq, out_fasta, metrics_path=metrics,
+        return run_two_pass(cfg, paths, out, out_fasta, metrics_path=metrics,
                             workdir=os.path.join(workdir, "ckpt"),
                             device=device)
-    # per-file outputs (paired-end R1/R2) via run_correct's group mode
-    m = MetricsWriter(metrics if is_writer() else None)
-    try:
-        state = run_count(cfg, paths, metrics=m, device=device)
-        stats = run_correct(cfg, paths, state,
-                            out_fastq if len(paths) > 1 else out_fastq[0],
-                            metrics=m, device=device)
-        result = {"threshold": state.threshold, **stats}
-        if out_fasta is not None:
-            result["unitigs"] = assemble_to_fasta(
-                cfg, state, out_fasta,
-                corrected_fastq=out_fastq if len(out_fastq) > 1
-                else out_fastq[0], device=device)
-            # the seed-extend validation stage (DESIGN.md §10b):
-            # corrected reads aligned back to the contigs (rank 0 of a
-            # mesh: it runs on one device, as in the JAX package)
-            if is_writer():
-                result["validate"] = run_align(cfg, out_fastq, out_fasta,
-                                               metrics=m, device=device)
-    finally:
-        m.close()
-    return result
-
-
-def run_all(scale: float = 1.0, configs=None, *, device) -> list:
-    return [run_config(n, scale, device=device)
-            for n in (configs or sorted(CONFIGS))]
+    return run_pipeline(cfg, paths, out, out_fasta, metrics,
+                        validate=out_fasta is not None, device=device)

@@ -61,9 +61,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXIS_DATA = "data"
-AXIS_BUCKET = "bucket"
-
 # how long a rank waits in a collective for the others
 COLLECTIVE_TIMEOUT = timedelta(hours=12)
 

@@ -152,16 +152,11 @@ def emit_unitigs(uniq_np: np.ndarray, arrays: dict, k: int) -> list[str]:
                   key=lambda s: (-len(s), s))
 
 
-def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
-                      device=None, metrics=None) -> int:
-    """Assemble stage: exact spectrum -> unitig FASTA (on a mesh, written
-    by rank 0).
-
-    If corrected_fastq (path or list of paths, e.g. paired-end R1/R2) is
-    given, the spectrum is first re-counted from it on `device` (the
-    pipeline assembles corrected reads; the re-count's metrics go to
-    `metrics` as a second "count" stage). Returns the unitig count, the
-    same on every rank.
+def assemble_to_fasta(cfg, state, out_fasta: str, device=None) -> int:
+    """Assemble stage: the state's exact spectrum -> unitig FASTA (on a
+    mesh, written by rank 0). Returns the unitig count, the same on every
+    rank. The pipeline assembles the corrected reads: it re-counts them
+    (pipeline/run.py) and hands that count's state here.
 
     On one host of a mesh every rank holds the same global spectrum, so
     rank 0 alone derives the unitigs. Across N > 1 hosts the host leaders
@@ -176,17 +171,12 @@ def assemble_to_fasta(cfg, state, out_fasta: str, corrected_fastq=None,
     from kmerax_torch.graph.partitioned import assemble_host
     from kmerax_torch.graph.sharded import assemble_sharded
     from kmerax_torch.io.fasta import write_fasta
-    from kmerax_torch.pipeline.count import run_count
     from kmerax_torch.spectrum.host_sharded import ShardedHostSpectrum
     from kmerax_torch.utils import tracing
 
     if device is None:
         device = (state.bloom_table if state.bloom_table is not None
                   else state.sharded_table).device
-    if corrected_fastq is not None:
-        paths = ([corrected_fastq] if isinstance(corrected_fastq, str)
-                 else list(corrected_fastq))
-        state = run_count(cfg, paths, device=device, metrics=metrics)
     mesh = dmesh.current()
     hosts = mesh is not None and mesh.n_hosts > 1
     works = mesh.is_leader if hosts else dmesh.is_writer()

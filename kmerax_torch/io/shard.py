@@ -11,13 +11,15 @@ byte ranges. Each host parses only its own shards:
     (pipeline/count.py); counting is order-free, so the merged spectrum is
     the one-process stream's (DESIGN.md §13).
   * correct and align: with a replicated table there is no cross-host
-    dependency; each host corrects (aligns) and writes its own shards, and
-    rank 0 concatenates the parts in shard order.
+    dependency; each host corrects (aligns) and writes its own shards
+    (`shard_units`, `host_share`), and rank 0 concatenates the parts in
+    shard order (`concat_parts`).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 
 
 def _assign_by_size(sizes: list[int], n_procs: int) -> list[list[int]]:
@@ -143,3 +145,39 @@ def local_shards(paths: list[str], n_procs: int, pid: int):
     shards = all_input_shards(paths, n_procs)
     sizes = [shard_size(s) for s in shards]
     return [shards[i] for i in _assign_by_size(sizes, n_procs)[pid]]
+
+
+def use_per_host_io(cfg, paths, mesh) -> bool:
+    """Per-host input sharding (kmerax/pipeline/run.py::_use_per_host_io):
+    across N > 1 hosts with `per_host_io`, given at least one file a host
+    or plain (non-.gz) files, which split into record-aligned byte ranges,
+    so a single big FASTQ still parses 1/N a host."""
+    if mesh is None or mesh.n_hosts <= 1 or not cfg.per_host_io:
+        return False
+    return (len(paths) >= mesh.n_hosts
+            or not any(str(p).endswith(".gz") for p in paths))
+
+
+def shard_units(paths: list[str], n_procs: int, out=None):
+    """A single output's units across n_procs hosts: ([shard], part) for
+    each of all_input_shards(paths, n_procs), in shard order, the part
+    path `out.partNNNN` (None where `out` is None)."""
+    return [([sh], f"{out}.part{i:04d}" if out else None)
+            for i, sh in enumerate(all_input_shards(paths, n_procs))]
+
+
+def host_share(units, n_procs: int, pid: int) -> list[int]:
+    """The indices of the (inputs, output) units host `pid` owns, in
+    order: _assign_by_size over the size of each unit's first input."""
+    return _assign_by_size([shard_size(u[0][0]) for u in units],
+                           n_procs)[pid]
+
+
+def concat_parts(parts: list[str], dst) -> None:
+    """Stream the part files, in the order given (shard order, the read
+    order), into the open binary file `dst`, then remove them."""
+    for part in parts:
+        with open(part, "rb") as src:
+            shutil.copyfileobj(src, dst, 8 << 20)
+    for part in parts:
+        os.remove(part)

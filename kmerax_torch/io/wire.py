@@ -15,6 +15,11 @@ codes per byte:
 N (code 4) does not fit in 2 bits, so a batch with an N inside a read
 crosses as int8 (`batch_has_n`); output bytes are the same on both wires.
 
+A stage sends its batches through `to_device_batch` (count, correct,
+align): `send_batch` is the H2D leg, `unwire` the device unpack. The wire
+is decided for the whole batch, so a mesh rank that sends only its rows
+takes the wire every rank of it takes.
+
 The device side shifts and masks in uint8 (torch has uint8 shifts on the
 CPU, unlike uint32 ones), so its temporaries are a byte a base.
 """
@@ -92,3 +97,34 @@ def unpack2_host(packed: np.ndarray, L: int) -> np.ndarray:
     shifts = (np.arange(4, dtype=np.uint8) * 2)[None, None, :]
     b = (p >> shifts) & 3
     return b.reshape(packed.shape[0], -1)[:, :L]
+
+
+def send_batch(batch, device, pack: bool = False, rows=None):
+    """The H2D leg of a host ReadBatch -> (rows, int32 lengths (B,),
+    packed) on the device. With `pack`, an N-free batch crosses on the 2-bit
+    wire (rows (B, ceil(L/4)) uint8) and `packed` is True; otherwise the
+    rows are the (B, L) int8 bases. With `rows` (a slice), only those rows
+    cross, on the wire the whole batch takes."""
+    bases, lengths = batch.bases, batch.lengths
+    pack = pack and not batch_has_n(bases, lengths)
+    if rows is not None:
+        bases, lengths = bases[rows], lengths[rows]
+    lengths = torch.from_numpy(lengths).to(device)
+    if pack:
+        return torch.from_numpy(pack2_host(bases)).to(device), lengths, True
+    return (torch.from_numpy(bases.astype(np.int8)).to(device), lengths,
+            False)
+
+
+def unwire(rows, lengths, packed: bool, L: int):
+    """The device leg: send_batch's rows -> (B, L) int8 bases."""
+    return unpack2_dev(rows, lengths, L) if packed else rows
+
+
+def to_device_batch(batch, device, pack: bool = False, rows=None):
+    """A host ReadBatch (or its `rows`) -> (int8 bases (B, L), int32
+    lengths (B,), packed) on the device: send_batch, then the unpack on the
+    2-bit wire."""
+    sent, lengths, packed = send_batch(batch, device, pack, rows)
+    return (unwire(sent, lengths, packed, batch.bases.shape[1]), lengths,
+            packed)

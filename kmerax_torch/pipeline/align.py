@@ -9,8 +9,6 @@ card). Stats and the per-read TSV are byte-identical to the JAX package's.
 from __future__ import annotations
 
 import contextlib
-import os
-import shutil
 from typing import Optional
 
 import numpy as np
@@ -18,11 +16,11 @@ import torch
 
 from kmerax_torch.config import KmeraxConfig
 from kmerax_torch.core.codec import seq_bytes_to_bases
+from kmerax_torch.io import wire
 from kmerax_torch.io.batcher import BackgroundBatcher
 from kmerax_torch.io.fasta import read_fasta
 from kmerax_torch.ops.align import build_contig_index, validate_batch
 from kmerax_torch.ops.seed_hash import build_seed_hash
-from kmerax_torch.pipeline.count import to_device_batch
 from kmerax_torch.utils import tracing
 from kmerax_torch.utils.cuda import resolve_device
 from kmerax_torch.utils.logging import get_logger
@@ -49,9 +47,8 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
     read order. Without per-host I/O rank 0 aligns everything and its
     stats reach every rank."""
     from kmerax_torch.dist import mesh as dmesh
-    from kmerax_torch.io.shard import _assign_by_size, all_input_shards, \
-        shard_size
-    from kmerax_torch.pipeline.count import use_per_host_io
+    from kmerax_torch.io.shard import concat_parts, host_share, \
+        shard_units, use_per_host_io
 
     mesh = dmesh.current()
     hosts = mesh is not None and mesh.n_hosts > 1
@@ -62,13 +59,13 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
         paths = [paths]
     per_host = use_per_host_io(cfg, paths, mesh)
     if per_host:
-        shards = all_input_shards(paths, mesh.n_hosts)
-        mine = _assign_by_size([shard_size(x) for x in shards],
-                               mesh.n_hosts)[mesh.host]
-        units = [([shards[i]], f"{out_tsv}.part{i:04d}" if out_tsv
-                  else None) for i in mine] if mesh.is_leader else []
+        # the TSV is optional: without it the parts are None
+        units = shard_units(paths, mesh.n_hosts, out_tsv)
+        parts = [part for _, part in units]
+        mine = host_share(units, mesh.n_hosts, mesh.host)
         log.info("align[per-host]: process %d aligns %d/%d shards",
-                 mesh.host, len(mine), len(shards))
+                 mesh.host, len(mine), len(units))
+        units = [units[i] for i in mine] if mesh.is_leader else []
     else:
         units = [(paths, out_tsv)] if dmesh.is_writer() else []
 
@@ -95,7 +92,8 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
                   else contextlib.nullcontext()) as tsv:
                 for batch in BackgroundBatcher(gpaths, cfg.batch_reads,
                                                cfg.max_read_len):
-                    bases, lengths, _ = to_device_batch(batch, device)
+                    bases, lengths, _ = wire.to_device_batch(batch,
+                                                             device)
                     found, strand, pos, score = (
                         x[:batch.n].cpu().numpy() for x in
                         validate_batch(cat_dev, index, bases, lengths, k,
@@ -122,11 +120,7 @@ def run_align(cfg: KmeraxConfig, paths, contigs_fasta: str,
             sum_ident = float(tot[2]) / 1e6
             if out_tsv and dmesh.is_writer():
                 with open(out_tsv, "wb") as dst:
-                    for i in range(len(shards)):
-                        part = f"{out_tsv}.part{i:04d}"
-                        with open(part, "rb") as src:
-                            shutil.copyfileobj(src, dst)
-                        os.remove(part)
+                    concat_parts(parts, dst)
             dmesh.host_barrier("align_concat")
         elif hosts:
             got = dmesh.host_broadcast(np.asarray(

@@ -131,32 +131,6 @@ def table_counter(cfg: KmeraxConfig, n_words: int) -> str:
     return layout
 
 
-def send_batch(batch, device, pack: bool = False):
-    """The H2D leg of a host ReadBatch -> (rows, int32 lengths (B,),
-    packed) on the device. With `pack`, an N-free batch crosses on the 2-bit
-    wire (rows (B, ceil(L/4)) uint8, io/wire.py) and `packed` is True;
-    otherwise the rows are the (B, L) int8 bases."""
-    lengths = torch.from_numpy(batch.lengths).to(device)
-    if pack and not wire.batch_has_n(batch.bases, batch.lengths):
-        return (torch.from_numpy(wire.pack2_host(batch.bases)).to(device),
-                lengths, True)
-    return (torch.from_numpy(batch.bases.astype(np.int8)).to(device),
-            lengths, False)
-
-
-def unwire(rows, lengths, packed: bool, L: int):
-    """The device leg: send_batch's rows -> (B, L) int8 bases."""
-    return wire.unpack2_dev(rows, lengths, L) if packed else rows
-
-
-def to_device_batch(batch, device, pack: bool = False):
-    """A host ReadBatch -> (int8 bases (B, L), int32 lengths (B,), packed)
-    on the device: send_batch, then the unpack on the 2-bit wire."""
-    rows, lengths, packed = send_batch(batch, device, pack)
-    return (unwire(rows, lengths, packed, batch.bases.shape[1]), lengths,
-            packed)
-
-
 def _count_steps(cfg: KmeraxConfig, k: int):
     """The Bloom parameters and the exact flush for this config.
 
@@ -218,7 +192,8 @@ def run_count(cfg: KmeraxConfig, paths, *, device,
     with m.stage("count", device) as st:
         for batch in BackgroundBatcher(paths, cfg.batch_reads,
                                        cfg.max_read_len):
-            bases, _, _ = to_device_batch(batch, device, cfg.wire_pack)
+            bases, _, _ = wire.to_device_batch(batch, device,
+                                               cfg.wire_pack)
             # a full buffer merges when the next batch needs it, so the
             # stage's last flush (which copies the spectrum back) always
             # has rows
@@ -262,17 +237,6 @@ def _finish_count(cfg, host_ex, k, n_reads, n_kmers, tag="count"):
     return host, hist, exact_cap, t
 
 
-def use_per_host_io(cfg: KmeraxConfig, paths, mesh) -> bool:
-    """Per-host input sharding (kmerax/pipeline/run.py::_use_per_host_io):
-    across N > 1 hosts with `per_host_io`, given at least one file a host
-    or plain (non-.gz) files, which split into record-aligned byte ranges,
-    so a single big FASTQ still parses 1/N a host."""
-    if mesh is None or mesh.n_hosts <= 1 or not cfg.per_host_io:
-        return False
-    return (len(paths) >= mesh.n_hosts
-            or not any(str(p).endswith(".gz") for p in paths))
-
-
 def _mesh_batches(cfg: KmeraxConfig, paths, mesh):
     """Yield (this rank's (b, L) int8 rows of a global batch, the real
     reads in that global batch) for the mesh count loop.
@@ -285,7 +249,7 @@ def _mesh_batches(cfg: KmeraxConfig, paths, mesh):
     feeds empty rows (base code 4). Counting is order-free, so the spectrum
     is the one-process stream's (DESIGN.md §13)."""
     from kmerax_torch.dist.mesh import host_allgather
-    from kmerax_torch.io.shard import local_shards
+    from kmerax_torch.io.shard import local_shards, use_per_host_io
 
     B, L = cfg.batch_reads, cfg.max_read_len
     if not use_per_host_io(cfg, paths, mesh):

@@ -1,8 +1,10 @@
 """Pipeline orchestrator: count -> correct [-> assemble [-> align-validate]]
 on one device or on every rank of a mesh (port of
-kmerax/pipeline/run.py::run_pipeline). On a mesh rank 0 alone writes the
-metrics and the files, and aligns (the align stage runs on one device, as
-in the JAX package); across hosts each host aligns its own shards."""
+kmerax/pipeline/run.py::run_pipeline). The assemble stage re-counts the
+corrected reads, then builds their graph (graph/unitig.py). On a mesh rank
+0 alone writes the metrics and the files, and aligns (the align stage runs
+on one device, as in the JAX package); across hosts each host aligns its
+own shards."""
 
 from __future__ import annotations
 
@@ -35,18 +37,22 @@ def run_pipeline(cfg: KmeraxConfig, paths, out_fastq,
                             device=device)
         result = {"threshold": state.threshold, **stats}
         if out_fasta is not None:
-            # no profiler: the re-count inside opens a traced count stage
+            corrected = [out_fastq] if isinstance(out_fastq, str) \
+                else list(out_fastq)
+            # the graph of the corrected reads: their re-count's record
+            # comes just before this stage's, whose wall holds it. No
+            # profiler here: the re-count opens its own traced count stage
             with m.stage("assemble") as st:
-                n_unitigs = assemble_to_fasta(cfg, state, out_fasta,
-                                              corrected_fastq=out_fastq,
-                                              device=device, metrics=m)
+                recount = _count.run_count(cfg, corrected, device=device,
+                                           metrics=m)
+                n_unitigs = assemble_to_fasta(cfg, recount, out_fasta,
+                                              device=device)
+                del recount     # its table and spectrum, before align
                 st.set(unitigs=n_unitigs)
             result["unitigs"] = n_unitigs
             # one host: rank 0 aligns; across hosts every rank joins
             # the per-host align
             if validate and (is_writer() or process_count() > 1):
-                corrected = out_fastq if isinstance(out_fastq, (list, tuple)) \
-                    else [out_fastq]
                 result["validate"] = run_align(cfg, corrected, out_fasta,
                                                metrics=m, device=device)
     finally:

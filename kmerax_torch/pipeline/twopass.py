@@ -128,7 +128,7 @@ def run_two_pass(cfg: KmeraxConfig, paths, out_fastq,
             else:
                 with m.stage("assemble") as st:
                     n = assemble_to_fasta(cfg2, state2, out_fasta,
-                                          device=device, metrics=m)
+                                          device=device)
                     st.set(unitigs=n)
                 _mark_done(workdir, "assemble")
                 result["unitigs"] = n

@@ -72,6 +72,45 @@ def test_port_modules_import_nothing_of_jax():
     assert not bad, bad
 
 
+# the layers below the stages, and the modules above them that they must
+# not reach: the stages (pipeline/) call down into these, never back
+LOWER = ("core", "utils", "io", "spectrum", "ops", "graph")
+UPPER = ("kmerax_torch.pipeline", "kmerax_torch.bench", "kmerax_torch.cli")
+
+
+def _imported(path: Path) -> list[str]:
+    """The dotted modules a module's import statements name, at any depth
+    of its code (lazy imports inside functions included), relative ones
+    resolved and `from pkg import mod` read as pkg.mod."""
+    pkg = ["kmerax_torch", *path.relative_to(Path(ROOT) / "kmerax_torch")
+           .parent.parts]
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                up = pkg[:len(pkg) - node.level + 1]
+                base = ".".join([*up, base] if base else up)
+            out.append(base)
+            out.extend(f"{base}.{a.name}" for a in node.names)
+    return out
+
+
+@pytest.mark.parametrize("layer", LOWER)
+def test_lower_layers_import_no_stage(layer):
+    """No module of core/, utils/, io/, spectrum/, ops/ or graph/ imports
+    kmerax_torch.pipeline, .bench or .cli, lazily or not: the graph only
+    assembles a spectrum it is given, and the stage layer re-counts."""
+    files = sorted((Path(ROOT) / "kmerax_torch" / layer).rglob("*.py"))
+    assert files, layer
+    bad = [f"{p.relative_to(ROOT)}: {name}" for p in files
+           for name in _imported(p)
+           if any(name == u or name.startswith(u + ".") for u in UPPER)]
+    assert not bad, bad
+
+
 def test_config_matches_jax():
     fields = {f.name: f.default for f in dataclasses.fields(KmeraxConfig)}
     want = {f.name: f.default for f in dataclasses.fields(JConfig)}

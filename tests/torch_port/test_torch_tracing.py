@@ -211,3 +211,62 @@ def test_span_and_count_outside_a_stage(monkeypatch, where):
         work()
     assert st.spans["x"][1] == 2 and st.counters == {"c": 6}
     assert 0 < st.seconds("x") < 30
+
+
+# The records a job's metrics file holds, as the benchmark reads them:
+# each stage in order with its field names (in record order), its span
+# names and its counter names. A one-pass job re-counts the corrected
+# reads in a count record just before its assemble record; a two-pass
+# job's second count is pass 2 at k2.
+COUNT_REC = ("count", ["stage", "wall_s", "ts", "reads", "kmers",
+                       "threshold", "k", "reads_per_s", "kmers_per_s"],
+             ["count.flush", "io.parse_wait"],
+             ["count.merge_rows", "count.resident_flushes"])
+CORRECT_REC = ("correct", ["stage", "wall_s", "ts", "reads", "edited_reads",
+                           "edits", "reads_per_s"],
+               ["correct.step", "correct.write", "io.parse_wait"], [])
+ASSEMBLE_REC = ("assemble", ["stage", "wall_s", "ts", "unitigs"],
+                ["assemble.chains", "assemble.edges", "assemble.emit",
+                 "assemble.extend", "assemble.join"],
+                ["assemble.join_queries", "assemble.solid_nodes"])
+ALIGN_REC = ("align", ["stage", "wall_s", "ts", "reads", "aligned",
+                       "aligned_frac", "mean_identity", "index_s",
+                       "index_kmers", "table_bytes", "reads_per_s"],
+             ["align.contig_index", "align.seed_table", "io.parse_wait"], [])
+PINNED = {
+    "validate": [COUNT_REC, CORRECT_REC, COUNT_REC, ASSEMBLE_REC, ALIGN_REC],
+    "k2": [COUNT_REC, CORRECT_REC, COUNT_REC, ASSEMBLE_REC],
+}
+
+
+@pytest.fixture(scope="module")
+def k2_records(tmp_path_factory):
+    """The records of `pipeline --k2 63 --out-fasta --metrics` through the
+    CLI, on the `runs` fixture's reads."""
+    from kmerax_torch.cli import main
+
+    _, reads = ecoli_like(seed=8, genome_len=3000, coverage=20,
+                          read_len=100, error_rate=0.01)
+    d = tmp_path_factory.mktemp("k2")
+    (d / "r.fastq").write_bytes(make_fastq(reads))
+    main(["pipeline", "--in", str(d / "r.fastq"), "--out-fastq",
+          str(d / "c.fastq"), "--out-fasta", str(d / "c.fa"), "--metrics",
+          str(d / "m.jsonl"), "--k2", "63", "-k", "31", "--bloom-log2-width",
+          "15", "--batch-reads", "128", "--max-read-len", "100",
+          "--exact-capacity", str(1 << 15), "--device", "cpu"])
+    with open(d / "m.jsonl") as f:
+        return [json.loads(ln) for ln in f]
+
+
+@pytest.mark.parametrize("job", ["validate", "k2"])
+def test_metrics_records_are_pinned(runs, k2_records, job):
+    """`pipeline --out-fasta --validate` and `pipeline --k2 63 --out-fasta`
+    write these stage records, in this order, with these field, span and
+    counter names (the benchmark's readers take them by name); the count
+    records carry their pass's k."""
+    recs = runs[False]["records"] if job == "validate" else k2_records
+    got = [(r["stage"], [k for k in r if k not in ("spans", "counters")],
+            sorted(r["spans"]), sorted(r["counters"])) for r in recs]
+    assert got == PINNED[job]
+    assert [r["k"] for r in recs if r["stage"] == "count"] == \
+        ([31, 31] if job == "validate" else [31, 63])

@@ -8,7 +8,6 @@ import torch
 
 from kmerax.io import wire as jw
 from kmerax_torch.io import wire as tw
-from kmerax_torch.pipeline import count as t_count
 from sim import ecoli_like, make_fastq
 
 from parity import reads_with_ns, run_clis
@@ -86,15 +85,14 @@ def test_pipeline_bytes_equal_on_both_wires(tmp_path, monkeypatch):
     fq = tmp_path / "reads.fastq"
     _fastq_with_ns_and_ragged(fq)
     wires = []
-    real = t_count.to_device_batch
+    real = tw.to_device_batch
 
-    def spy(batch, device, pack=False):
-        out = real(batch, device, pack)
+    def spy(batch, device, pack=False, rows=None):
+        out = real(batch, device, pack, rows)
         wires.append(out[2])
         return out
 
-    monkeypatch.setattr(t_count, "to_device_batch", spy)
-    monkeypatch.setattr("kmerax_torch.pipeline.correct.to_device_batch", spy)
+    monkeypatch.setattr(tw, "to_device_batch", spy)
     common = ["-k", "31", "--bloom-log2-width", "18", "--batch-reads", "128",
               "--max-read-len", "102", "--exact-capacity", str(1 << 17)]
     out = {}
