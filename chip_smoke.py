@@ -44,7 +44,13 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      i32 and p16 counters at 2^24 and 2^29 counters in turns (whether a
      32 MiB p16 table in the 50 MB L2 beats a 64 MiB i32 one), K1's bound
      and sector floor at both widths. K2's record keeps its times, bound
-     and floor at every timed k (`by_k`).
+     and floor at every timed k (`by_k`). The correct round's K6
+     correct_candidates and K7 correct_apply (`_check_slots`) at k = 25,
+     31, 63 on a config-1 batch whose clean reads fill the table, under
+     both schemes on i32 and p16 counters: each == its plain version, K3
+     on the whole slot grid == K3 on its live slots alone, the kernel step
+     == correct_batch with K2's and K3's plain versions; K6, K7 and K3 on
+     the grid and compacted timed at k=31, hash scheme, i32 counters.
   3. small goldens: the port's pipeline on the card, under the hash and
      the minimizer bucket scheme, `correct --use-exact`, and `pipeline --k2
      63` must write corrected FASTQ and unitig FASTA bytes equal to the
@@ -55,10 +61,13 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      entry point, with launch counts of every kernel, stage rates and
      correction accuracy against the simulated truth; then, outside the
      launch count, the count stage's synchronised device step per batch,
-     one profiler window of 20 count and one of 20 correct batches with
-     K1-K3's device share and the kernels launched per batch and per
-     correct round, and K2 and K3 against their plain versions on the
-     main path's own first calls (K3 also at its entry count).
+     one profiler window of 20 count and one of 20 correct batches (the
+     kernel step, make_correct_step) with the kernels' device share and
+     the kernels launched per batch and per correct round, and K2 and K3
+     against their plain versions on the main path's own first calls (K3
+     on the slot grid and also at its entry count); K2, K6, K3 and K7
+     launched once a round each, as many as the record's
+     correct.rounds_on_card.
   5. BASELINE config 3 (human chr21 PE150 30x, error rate 0.005, k=31,
      correct + assemble) on a 1.0 Mb genome, through `pipeline --validate`
      and then the `align` subcommand, with stage walls, launch counts,
@@ -70,7 +79,8 @@ oracle (`oracle/`) and simulator (`tests/sim.py`) are the witnesses.
      --spectrum` on the checkpoints, byte-equal, and `correct --use-exact`.
   7. `bench`: `bench --preset all` at run_preset's sizes (every metric
      printed); the presets' first (B, 150) batches through K1, the correct
-     step (K2 + K3) and K4 against their plain versions, exactly; `bench
+     step (K2, K6, K3, K7) and K4 against their plain versions, exactly;
+     `bench
      --preset e2e` on the int8 and the 2-bit wire (walls), and in a child
      process each wire's copies and the count step's launches per batch
      under the profiler; BASELINE config 2 (S. cerevisiae PE100 80x, k=25)
@@ -552,6 +562,10 @@ def phase_kernels(device=DEVICE):
         out.append(_check_k2(rng, tk, device, scheme=scheme))
         out.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device,
                              scheme=scheme))
+        # timed once: every profiler session in this process makes the
+        # later ones likelier to drop events (phase 7's p16 count trace)
+        out.extend(_check_slots(rng, tk, device, scheme=scheme,
+                                timed=(31,) if scheme == "hash" else ()))
         del tk
         torch.cuda.empty_cache()
         if scheme == "hash":
@@ -806,6 +820,8 @@ def _check_p16(rng, device, index_add_ms):
                              timed=timed))
         got.append(_check_k3(rng, tk, _fill3, 4 * K_READS, device,
                              scheme=scheme, counter="p16", timed=timed))
+        _check_slots(rng, tk, device, scheme=scheme, counter="p16",
+                     timed=())
         del tk
         torch.cuda.empty_cache()
         for i, r in enumerate(got):
@@ -1604,6 +1620,7 @@ def _k3_traffic(pk, table, t, args):
         return canon, fwd
 
     def solid_fn(cw, v):
+        v = v & (args[4] >= 0).view(-1, *(1,) * (v.dim() - 1))  # dead
         block, lp = blocks_lanepack(pk, cw)
         block, lp, vf = block.reshape(-1), lp.reshape(-1), v.reshape(-1)
         lanes, sectors = _probe_traffic(table, block, lp, vf, pk.num_hashes,
@@ -1703,6 +1720,202 @@ def _check_k3(rng, tk, fill, Q, device, ks=K_CHECKED, real=None,
         return {"max_abs_err": err_max}
     rec["max_abs_err"] = err_max
     return rec
+
+
+def _plain_correct(params, table, t, bases, lengths, **kw):
+    """correct_batch on the card with K2's and K3's plain versions: the
+    kernel step's plain version."""
+    import torch
+    from kmerax_torch.ops.correct import _accept, correct_batch
+    from kmerax_torch.ops.correct_kernels import eval_scores_plain
+    from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid_plain
+
+    def window_fn(b, lj):
+        s = bloom_query_solid_plain(table, b, lj, params, t)
+        j = torch.arange(s.shape[1], dtype=torch.int32, device=b.device)
+        return s, j[None, :] <= lj[:, None]
+
+    def eval_fn(b, ln, lj, er, ei):
+        return _accept(eval_scores_plain(params, table, t, b, ln, lj,
+                                         er.to(torch.int32),
+                                         ei.to(torch.int32)), b, er, ei)
+    return correct_batch(bases, lengths, params.k, t, None,
+                         window_fn=window_fn, eval_fn=eval_fn, **kw)
+
+
+def _slot_reads(rng, k: int):
+    """Config 1's batch shape for the correct round's kernels: (clean,
+    noisy) (K_READS, K_LEN) int32 reads of a 200 kb genome and their
+    lengths; noisy carries 1 % substitutions and 0.3 % Ns, 10 % of the
+    reads are shorter (>= k) and 2 % shorter than k."""
+    import numpy as np
+
+    B, L = K_READS, K_LEN
+    genome = rng.integers(0, 4, 200_000).astype(np.int32)
+    clean = genome[rng.integers(0, len(genome) - L, B)[:, None]
+                   + np.arange(L)[None, :]]
+    noisy = np.where(rng.random(clean.shape) < 0.01,
+                     (clean + rng.integers(1, 4, clean.shape)) % 4, clean)
+    noisy[rng.random(noisy.shape) < 0.003] = 4
+    lengths = np.full(B, L, np.int32)
+    short = rng.random(B) < 0.1
+    lengths[short] = rng.integers(k, L + 1, short.sum())
+    tiny = rng.random(B) < 0.02
+    lengths[tiny] = rng.integers(0, k, tiny.sum())
+    noisy[np.arange(L)[None, :] >= lengths[:, None]] = 4
+    return clean, noisy.astype(np.int32), lengths
+
+
+def _check_slots(rng, tk, device, phase="phase2", scheme="hash",
+                 counter="i32", timed=K_TIMED):
+    """The correct round's kernels at k in K_TIMED on config 1's batch
+    shape (`_slot_reads`; its clean reads inserted three times into `tk`,
+    t=3), each == its plain version exactly: K6 correct_candidates (slots
+    and done), K3 over the whole slot grid == K3 on the live slots alone
+    (the compacted call) with zero at the dead ones, K7 correct_apply in a
+    round before the last and in the last (bases, edits, done, the output
+    rows and n_edits), and the whole kernel step (make_slot_step) ==
+    correct_batch with K2's and K3's plain versions on the same int8
+    batch. At each k in `timed`, K6 and K7 (the last round's form) are
+    timed and recorded, and K3 on the slot grid and compacted. Returns the
+    K6 and K7 records of k=31 ([] where none is timed)."""
+    import torch
+    from kmerax_torch.ops.correct_kernels import SLOTS, \
+        apply_slots_plain, correct_apply, correct_candidates, \
+        correct_eval_scores, make_slot_step, round_candidates_plain
+    from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid
+
+    B, L, t, C = K_READS, K_LEN, 3, SLOTS
+    max_runs, max_edits = 8, 8
+    LW = (tk.numel() * (2 if counter == "p16" else 1)).bit_length() - 1
+    ent_r = torch.arange(B * C, dtype=torch.int32, device=device) // C
+    recs = []
+    for k in K_TIMED:
+        pk = _params(k, scheme, LW, counter)
+        tag = f"k={k}, {scheme} scheme, {counter} counters"
+        clean, noisy, lengths = _slot_reads(rng, k)
+        _fill3(tk, pk, clean)
+        cur = torch.as_tensor(noisy, device=device)
+        lens = torch.as_tensor(lengths, device=device)
+        last_j = lens - k
+        solid = bloom_query_solid(tk, cur, last_j, pk, t)
+        done0 = torch.zeros(B, dtype=torch.int32, device=device)
+        dk, dp = done0.clone(), done0.clone()
+        ck = correct_candidates(solid, last_j, dk, k, max_runs)
+        cp = round_candidates_plain(solid, last_j, dp, k, max_runs)
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, cp) and torch.equal(dk, dp)):
+            raise AssertionError(f"K6 differs from plain at {tag}")
+        live = ck.view(-1) >= 0
+        n_live = int(live.sum())
+        if not 0 < n_live < B * C:
+            raise AssertionError(f"K6 test is degenerate at {tag}: "
+                                 f"{n_live} live slots")
+        grid = correct_eval_scores(pk, tk, t, cur, lens, last_j, ent_r,
+                                   ck.view(-1))
+        compact = correct_eval_scores(pk, tk, t, cur, lens, last_j,
+                                      ent_r[live], ck.view(-1)[live])
+        torch.cuda.synchronize()
+        if not (torch.equal(grid[live], compact)
+                and not grid[~live].any()):
+            raise AssertionError(f"K3 on the slot grid differs from its "
+                                 f"compacted call at {tag}")
+        bytes_io = dict(cands=4 * B * C, scores=16 * B * C, state=16 * B)
+        # edits so far drawn in 0..max_edits, so the last round reverts
+        ed0 = torch.as_tensor(rng.integers(0, max_edits + 1, B),
+                              dtype=torch.int32, device=device)
+        for last in (False, True):
+            orig = cur.to(torch.int8) if last else None
+            got, want = [], []
+            for fn, out in ((correct_apply, got), (apply_slots_plain, want)):
+                bs, ed, dn = cur.clone(), ed0.clone(), dk.clone()
+                res = fn(bs, ck, grid, ed, dn, k, orig, max_edits)
+                out.extend([bs, ed, dn, *(res or ())])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"K7 differs from plain at {tag}, "
+                                     f"{'last' if last else 'first'} round")
+        n_applied = int((got[1] - ed0).sum())
+        n_reverted = int((got[1] > max_edits).sum())
+        if n_applied == 0 or n_reverted == 0:
+            raise AssertionError(f"K7 test is degenerate at {tag}: "
+                                 f"{n_applied} applied, {n_reverted} "
+                                 f"reverted")
+        kw = dict(rounds=2, max_runs=max_runs, max_edits=max_edits)
+        bases = cur.to(torch.int8)
+        fk, nek = make_slot_step(pk, tk, t, **kw)(bases, lens)
+        fp, nep = _plain_correct(pk, tk, t, bases, lens, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(fk, fp.to(torch.int8)) and torch.equal(nek, nep)):
+            raise AssertionError(f"the kernel step differs from "
+                                 f"correct_batch at {tag}")
+        msg = (f"{phase} K6, K3 on the slot grid, K7 and the kernel step == "
+               f"plain at {tag}: {B} x {L}, {n_live} of {B * C} slots "
+               f"live, {n_applied} edits applied in the round, "
+               f"{n_reverted} reads past max_edits in the last; step: "
+               f"{int(nek.sum())} edits kept in {int((nek > 0).sum())} "
+               f"reads")
+        if k not in timed:
+            say(msg)
+            continue
+        say(msg)
+        nk = L - k + 1
+        # K6: the solidity, last_j, done read and written, the slots
+        b6 = B * nk + 4 * B + 8 * B + bytes_io["cands"]
+        dcopy = done0.clone()
+
+        def k6():
+            dcopy.copy_(done0)
+            correct_candidates(solid, last_j, dcopy, k, max_runs)
+
+        def k6_plain():
+            dcopy.copy_(done0)
+            round_candidates_plain(solid, last_j, dcopy, k, max_runs)
+        t6 = _timed(k6, k6_plain, "correct_candidates_kernel", 5)
+        r6 = _record("correct_candidates", "kmerax_torch/csrc/correct.cu",
+                     "none (XLA glue: kmerax/ops/correct.py::"
+                     "_weak_run_candidates and the cap)", 0, t6, b6, 0,
+                     None, None, scheme)
+        # K7, last round: slots, scores, the bases under the live slots
+        # and the edits, state, the output rows (int8) from the round's
+        # int32 rows, n_edits
+        b7 = (bytes_io["cands"] + bytes_io["scores"] + 4 * n_live
+              + 4 * n_applied + bytes_io["state"] + 4 * B * L + B * L
+              + 4 * B)
+        bs, ed, dn = cur.clone(), ed0.clone(), dk.clone()
+        orig = cur.to(torch.int8)
+
+        def k7(fn=correct_apply):
+            bs.copy_(cur)
+            ed.copy_(ed0)
+            dn.copy_(dk)
+            fn(bs, ck, grid, ed, dn, k, orig, max_edits)
+        t7 = _timed(k7, lambda: k7(apply_slots_plain),
+                    "correct_apply_kernel", 5)
+        r7 = _record("correct_apply", "kmerax_torch/csrc/correct.cu",
+                     "none (XLA glue: kmerax/ops/correct.py::_accept, "
+                     "_apply)", 0, t7, b7, 0, None, None, scheme)
+        g_ms = _kernel_ms(lambda: correct_eval_scores(
+            pk, tk, t, cur, lens, last_j, ent_r, ck.view(-1)),
+            "correct_eval_scores_kernel")
+        c_er, c_ei = ent_r[live], ck.view(-1)[live]
+        c_ms = _kernel_ms(lambda: correct_eval_scores(
+            pk, tk, t, cur, lens, last_j, c_er, c_ei),
+            "correct_eval_scores_kernel")
+        r6["k3_slot_grid_kernel_ms"], r6["k3_compacted_kernel_ms"] = g_ms, \
+            c_ms
+        _say_times(f"{phase} K6 correct_candidates at {tag} ({B} reads, "
+                   f"{nk} windows each; ms includes a {4 * B}-byte copy "
+                   f"of done)", r6)
+        _say_times(f"{phase} K7 correct_apply, last round, at {tag} "
+                   f"({n_live} live slots, {n_applied} applied; ms "
+                   f"includes the copies back of the round's state)", r7)
+        num(f"{phase} K3 {tag}: the slot grid ({B * C} slots, {n_live} "
+            f"live) {g_ms} ms, the compacted call ({n_live} entries) "
+            f"{c_ms} ms (profiler)")
+        if k == 31:
+            recs = [r6, r7]
+    return recs
 
 
 def _align_inputs(rng, B, L, band):
@@ -2149,17 +2362,17 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
     then K1), each synchronised and timed on the host clock (the parse and
     the H2D copy are not in the time; K1's share is timed after a sync
     that ends the unpack), then one profiler window of `n_window` count
-    batches and one of `n_window` correct batches against the finished
-    table. Returns (params, table, the arguments of the first correct
-    batch's first K3 call, those of its first K2 call)."""
+    batches and one of `n_window` correct batches of the kernel step
+    (make_correct_step) against the finished table. Returns (params,
+    table, the arguments of the first correct batch's first K3 call, those
+    of its first K2 call)."""
     import torch
     from kmerax_torch.config import KmeraxConfig
     from kmerax_torch.core.codec import num_words
     from kmerax_torch.io.batcher import BackgroundBatcher
-    from kmerax_torch.ops.correct import correct_batch
-    from kmerax_torch.ops.correct_kernels import make_eval_fn, \
-        make_window_fn
+    from kmerax_torch.ops import correct_kernels
     from kmerax_torch.io.wire import send_batch, unwire
+    from kmerax_torch.pipeline.correct import make_correct_step
     from kmerax_torch.pipeline.count import _count_steps
     from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import bloom_insert
@@ -2194,27 +2407,32 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
         f"{statistics.median(k1) * 1e3:.4f} ms")
 
     t = threshold
-    ev = make_eval_fn(params, table, t)
-    wf = make_window_fn(params, table, t)
+    correct = make_correct_step(params, table, t, rounds=cfg.rounds,
+                                max_runs=cfg.max_runs,
+                                max_edits=cfg.max_edits)
     first, first_k2 = [], []
+    k2, k3 = correct_kernels.bloom_query_solid, \
+        correct_kernels.correct_eval_scores
 
-    def eval_fn(bases, lengths, last_j, ent_r, ent_i):
-        if not first:
-            first.append((bases.clone(), lengths.clone(), last_j.clone(),
-                          ent_r.to(torch.int32), ent_i.to(torch.int32)))
-        return ev(bases, lengths, last_j, ent_r, ent_i)
-
-    def window_fn(bases, last_j):
+    def spy_k2(tk, bases, last_j, p, tt):
         if not first_k2:
             first_k2.append((bases.clone(), last_j.clone()))
-        return wf(bases, last_j)
+        return k2(tk, bases, last_j, p, tt)
 
-    def correct(bases, lengths):
-        correct_batch(bases, lengths, cfg.k, t, None, rounds=cfg.rounds,
-                      max_runs=cfg.max_runs, max_edits=cfg.max_edits,
-                      eval_fn=eval_fn, window_fn=window_fn)
+    def spy_k3(p, tk, tt, bases, lengths, last_j, ent_r, ent_i):
+        if not first:
+            first.append((bases.clone(), lengths.clone(), last_j.clone(),
+                          ent_r.clone(), ent_i.clone()))
+        return k3(p, tk, tt, bases, lengths, last_j, ent_r, ent_i)
 
-    correct(*keep[0])             # warm-up; records the K2 and K3 calls
+    # warm-up; records the kernel step's first K2 and K3 calls
+    correct_kernels.bloom_query_solid = spy_k2
+    correct_kernels.correct_eval_scores = spy_k3
+    try:
+        correct(*keep[0])
+    finally:
+        correct_kernels.bloom_query_solid = k2
+        correct_kernels.correct_eval_scores = k3
     # the count window in a child process of its own: in this process,
     # after the script's many profiler sessions, it recorded 6-18 of its
     # ~40 kernels
@@ -2224,7 +2442,9 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
                 (cw["wall"], cw["device"], cw["by"], cw["kernels"]))]
     windows.append(("correct", _profile_window(
         correct, keep, ("bloom_query_solid_kernel",
-                        "correct_eval_scores_kernel"))))
+                        "correct_candidates_kernel",
+                        "correct_eval_scores_kernel",
+                        "correct_apply_kernel"))))
     for stage, (wall, dev, by, n_k) in windows:
         if dev is None:
             num(f"{tag} profiler, {len(keep)} {stage} batches: wall "
@@ -2239,8 +2459,9 @@ def _device_steps(tag: str, paths, cfg_kw: dict, threshold: int,
                 f"{n} {s:.4f} s ({s / wall:.2%} of the wall)"
                 for n, s in by.items()))
     args = first[0]
-    num(f"{tag} first correct batch: K3 called with {args[3].numel()} "
-        f"entries, {int((args[4] >= 0).sum())} of them live")
+    num(f"{tag} first correct batch: K3 called on the slot grid of "
+        f"{args[3].numel()} entries, {int((args[4] >= 0).sum())} of them "
+        f"live")
     return params, table, args, first_k2[0]
 
 
@@ -2279,6 +2500,14 @@ def phase_config1(workdir: str, recs=None,
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched")
+    # the kernel step: K2, K6, K3 and K7 once a round, and the round count
+    # in the correct record
+    rounds = stages["correct"][0]["counters"].get("correct.rounds_on_card")
+    if not (launches["correct_candidates"] == launches["correct_apply"]
+            == launches["correct_eval_scores"]
+            == launches["bloom_query_solid"] == rounds):
+        raise AssertionError(f"the correct step's launches {launches}, "
+                             f"correct.rounds_on_card {rounds}")
     _check_join("phase4", launches, stages["assemble"][0])
 
     before, after, introduced, gain = _accuracy(outs, noisy, truth, seq_off)
@@ -2666,6 +2895,17 @@ def _child_count_window(arg) -> dict:
             "wall": wall, "device": dev, "by": by, "kernels": n_k}
 
 
+def _child_traced_cli(arg) -> dict:
+    """kmerax_torch.cli with `argv` under KMERAX_TRACE_DIR=`trace`, in
+    this process alone: its JSON result, wall and kernel launches."""
+    from kmerax_torch.utils import cuda
+
+    os.environ["KMERAX_TRACE_DIR"] = arg["trace"]
+    with contextlib.redirect_stdout(sys.stderr):
+        res, wall = _cli("phase7", arg["workdir"], arg["argv"])
+    return {"result": res, "wall": wall, "launches": dict(cuda.LAUNCHES)}
+
+
 def _trace_stats(prof) -> dict:
     """Device events of a profiler session, from its chrome trace: kernel
     launches by name, and copies by (direction, bytes) with their count
@@ -2845,7 +3085,8 @@ def turns(trees) -> None:
 
 
 _CHILDREN = {"count_window": _child_count_window, "wire": _child_wire,
-             "kernel_times": _child_kernel_times}
+             "kernel_times": _child_kernel_times,
+             "traced_cli": _child_traced_cli}
 
 
 def _say_wire(prof: dict, n_batches: int, B: int, L: int) -> None:
@@ -2880,21 +3121,19 @@ def _say_wire(prof: dict, n_batches: int, B: int, L: int) -> None:
 def _bench_first_batches(device) -> dict:
     """The presets' first batches at (B, 150) on the card, each kernel path
     against its plain version, exactly: K1's table and valid count (count
-    preset), the correct step's rows and n_edits (K2 + K3, correct preset)
-    and K4's scores (align preset, its first call in validate_batch).
-    Returns each kernel's max_abs_err."""
+    preset), the correct step's rows and n_edits (K2, K6, K3, K7, correct
+    preset) and K4's scores (align preset, its first call in
+    validate_batch). Returns each kernel's max_abs_err."""
     import torch
     import kmerax_torch.ops.align as align
     from kmerax_torch.bench import runners
     from kmerax_torch.config import KmeraxConfig
     from kmerax_torch.ops.align_kernels import banded_align_scores, \
         banded_align_scores_plain
-    from kmerax_torch.ops.correct import _accept, correct_batch
-    from kmerax_torch.ops.correct_kernels import eval_scores_plain
     from kmerax_torch.pipeline.correct import make_correct_step
     from kmerax_torch.spectrum.bloom import make_table
     from kmerax_torch.spectrum.bloom_kernels import bloom_insert, \
-        bloom_insert_plain, bloom_query_solid_plain
+        bloom_insert_plain
 
     cfg = KmeraxConfig()              # the CLI's defaults, as `bench` runs
     err = {}
@@ -2919,29 +3158,21 @@ def _bench_first_batches(device) -> dict:
     kw = dict(rounds=cfg.rounds, max_runs=cfg.max_runs,
               max_edits=cfg.max_edits)
     fk, nek = make_correct_step(params, table, t, **kw)(batches[0], lengths)
-
-    def window_fn(bases, last_j):
-        solid = bloom_query_solid_plain(table, bases, last_j, params, t)
-        j = torch.arange(solid.shape[1], dtype=torch.int32, device=device)
-        return solid, j[None, :] <= last_j[:, None]
-
-    def eval_fn(bases, lens, last_j, ent_r, ent_i):
-        return _accept(eval_scores_plain(params, table, t, bases, lens,
-                                         last_j, ent_r.to(torch.int32),
-                                         ent_i.to(torch.int32)),
-                       bases, ent_r, ent_i)
-    fp, nep = correct_batch(batches[0], lengths, cfg.k, t, None,
-                            eval_fn=eval_fn, window_fn=window_fn, **kw)
+    fp, nep = _plain_correct(params, table, t, batches[0], lengths, **kw)
     torch.cuda.synchronize()
     e = max(int((fk.to(torch.int32) - fp).abs().max()),
             int((nek - nep).abs().max()))
-    err["bloom_query_solid"] = err["correct_eval_scores"] = e
+    for name in ("bloom_query_solid", "correct_candidates",
+                 "correct_eval_scores", "correct_apply"):
+        err[name] = e
     if e or int(nek.sum()) == 0:
-        raise AssertionError(f"the correct step (K2 + K3) differs from its "
-                             f"plain version on the correct preset's batch "
-                             f"0 ({e}, {int(nek.sum())} edits)")
-    num(f"phase7 correct step (K2 + K3) == plain on the correct preset's "
-        f"batch 0: {tuple(batches[0].shape)} at t={t}, corrected rows and "
+        raise AssertionError(f"the correct step (K2, K6, K3, K7) differs "
+                             f"from its plain version on the correct "
+                             f"preset's batch 0 ({e}, {int(nek.sum())} "
+                             f"edits)")
+    num(f"phase7 correct step (K2, K6, K3, K7) == plain on the correct "
+        f"preset's batch 0: {tuple(batches[0].shape)} at t={t}, corrected "
+        f"rows and "
         f"n_edits equal, {int(nek.sum())} edits in "
         f"{int((nek > 0).sum())} reads")
     del batches, table
@@ -3099,7 +3330,8 @@ def _config2_p16(workdir: str) -> dict:
     """Config 2's reads (phase 7's acceptance run, kept in `_C2`) through
     the CLI's staged subcommands on p16 counters, with the acceptance run's
     config and `bloom_counter = "p16"` in a TOML: `count --config
-    c2_p16.toml --out spec` with KMERAX_TRACE_DIR set, then `correct
+    c2_p16.toml --out spec` with KMERAX_TRACE_DIR set (in a child
+    process, `_child_traced_cli`), then `correct
     --spectrum spec`. The corrected FASTQs byte-equal to the i32 acceptance
     run's, the checkpoint's bloom_table 2^(log2_width - 1) words, K1-K3
     launched in their p16 form only, and the count stage's trace naming
@@ -3117,18 +3349,20 @@ def _config2_p16(workdir: str) -> dict:
     outs = [os.path.join(workdir, f"p16_corrected_{i}.fastq") for i in (1, 2)]
     spec = os.path.join(workdir, "c2_p16_spec")
     trace = os.path.join(workdir, "trace")
+    # the traced count in a process of its own: in this one, after the
+    # script's many profiler sessions, its trace came to miss K1 launches
+    # (57 of 59), as the count window of phase 4 did
+    count = _child("traced_cli", {"workdir": workdir, "trace": trace,
+                                  "argv": ["count", "--in", *reads, "--out",
+                                           spec, "--config", toml,
+                                           "--device", DEVICE]})
+    cnt, w_count = count["result"], count["wall"]
     cuda.reset_launches()
-    os.environ["KMERAX_TRACE_DIR"] = trace
-    try:
-        cnt, w_count = _cli("phase7", workdir, [
-            "count", "--in", *reads, "--out", spec, "--config", toml,
-            "--device", DEVICE])
-    finally:
-        del os.environ["KMERAX_TRACE_DIR"]
     cor, w_correct = _cli("phase7", workdir, [
         "correct", "--in", *reads, "--spectrum", spec, "--out", *outs,
         "--config", toml, "--device", DEVICE])
-    launches = dict(cuda.LAUNCHES)
+    launches = {name: n + count["launches"][name]
+                for name, n in cuda.LAUNCHES.items()}
     for got, ref in zip(outs, want):
         _same_bytes(got, ref, "config 2 on p16 counters, staged, against "
                               "the i32 acceptance run")

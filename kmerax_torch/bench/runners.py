@@ -4,8 +4,8 @@ reads/s (correct, align) on one device, and an end-to-end FASTQ run
 
 Each timed preset runs the port's production step: count one K1
 `bloom_insert` a batch (no pending buffer: the preset counts without the
-exact spectrum), correct `pipeline/correct.make_correct_step` (K2 and K3),
-align `ops/align.validate_batch` (K4); e2e runs `run_count` and
+exact spectrum), correct `pipeline/correct.make_correct_step` (K2, K6,
+K3, K7), align `ops/align.validate_batch` (K4); e2e runs `run_count` and
 `run_correct` on one FASTQ file: here on one device, or, as the JAX
 package's e2e counts and corrects on the config's mesh, on the ranks of a
 mesh of D·S > 1 or of a multi-host run (`e2e_stages` through
@@ -131,7 +131,7 @@ def correct_setup(cfg: KmeraxConfig, n_reads: int, read_len: int, device):
 
 def bench_correct(cfg: KmeraxConfig, n_reads: int = 8192,
                   read_len: int = 150, *, device) -> dict:
-    """reads/s of the production correct step (K2 + K3) at t = 3."""
+    """reads/s of the production correct step (K2, K6, K3, K7) at t = 3."""
     from kmerax_torch.pipeline.correct import make_correct_step
 
     device = resolve_device(device)

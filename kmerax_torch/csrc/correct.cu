@@ -1,4 +1,5 @@
-// Fused correction scoring (K3) for Hopper.
+// Fused correction scoring (K3), and the rest of the correct round: its
+// candidates (K6) and its conflict-suppressed apply (K7), for Hopper.
 //
 // kmerax_correct_eval_scores replaces the Pallas kernel
 //   kmerax/ops/pallas_correct.py::_prep_kernel (via eval_entries_fused),
@@ -17,7 +18,11 @@
 // parameter too (kmerax.cuh): i32, or p16, the halfword probe the Pallas
 // kernel takes with its packed16 flag (pallas_correct.py:266-269). Positions outside
 // [0, length) read as base 4 (invalid); the center is always valid; window
-// j counts only when its start lies in [0, last_j] of the read.
+// j counts only when its start lies in [0, last_j] of the read. An entry
+// with ic < 0 is a dead slot and scores zero: the correct step hands K3 its
+// whole (B, kSlots) slot grid (K6's output, below), about two thirds of
+// it dead on the main path, and a dead slot's warps leave the work before
+// the span is loaded.
 //
 // What bounds it on an H100: 4k probes per entry, each into a random
 // 512-byte row of a table far above the 50 MB L2, so the floor is the
@@ -171,7 +176,9 @@ __global__ void correct_eval_scores_kernel(
     const int v = we / WPV;                  // center substitution
     const int j = (we % WPV) * 32 + lane;    // window
     const int64_t q = (int64_t)blockIdx.x * kEntries + e;
-    const bool live = q < Q;                 // warp-uniform
+    // warp-uniform; a dead slot (ent_i < 0) loads no span and probes
+    // nothing: its warps only meet the barriers, and it scores zero
+    const bool live = q < Q && ent_i[q] >= 0;
 
     int r = 0, c = 0, lj = -1;
     if (live) {
@@ -253,6 +260,159 @@ __global__ void correct_eval_scores_kernel(
     }
 }
 
+// ---- K6 and K7: the rest of a correct round -------------------------------
+//
+// A round of kmerax_torch/ops/correct.py::correct_batch is K2 (the windows'
+// solidity, csrc/bloom.cu), K6 (the candidates), K3 (their scores) and K7
+// (accept, conflicts, edits). K6 and K7 replace no Pallas kernel: the JAX
+// package leaves this glue to XLA's fusion (kmerax/ops/correct.py::
+// _weak_run_candidates, the per-read cap, and _apply), and the port ran it
+// as ~850 eager torch launches a round with two host syncs, while its
+// kernels needed a few tens of microseconds. Their plain versions are
+// ops/correct_kernels.py::round_candidates_plain and apply_slots_plain.
+//
+// What bounds them on an H100: bytes only. K6 reads the (B, nk) solidity
+// (one byte a window: 532 KB at 4,096 x 130) and writes the (B, kSlots)
+// slots; K7 reads the slots, their scores and the bases under them, and in
+// the last round the round's (B, L) rows, and writes the output: at 3.35
+// TB/s ~0.2 us and ~1.1 us on a 4,096 x 160 batch, well under a launch's
+// own latency (chip_smoke.py phase 2 prints both). One warp a read: reads
+// are independent, and the only sequential rules (a read's weak runs in
+// order, its slots' conflicts in slot order) stay inside one read, where
+// the warp keeps them in registers and ballots, with no shared memory and
+// no atomics.
+
+// A read's candidate slots a round: ops/correct.py::correct_batch's default
+// max_cands (ops/correct_kernels.py::SLOTS).
+constexpr int kSlots = 4;
+
+// K6: per read, the round's done update (every existing window solid, or
+// none) and the first kSlots distinct candidates of its first max_runs weak
+// runs, in run order (DESIGN.md §8 v2). Keeping the first occurrence and
+// then the first kSlots live ones equals stopping at the kSlots-th distinct
+// candidate, so the scan stops there. Lane n holds the n-th kept candidate;
+// a ballot tests a new one against those.
+__global__ void correct_candidates_kernel(
+    const uint8_t* __restrict__ solid, int64_t B, int nk,
+    const int32_t* __restrict__ last_j, int32_t* __restrict__ done, int k,
+    int max_runs, int32_t* __restrict__ cands) {
+    const int lane = threadIdx.x & 31;
+    const int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (r >= B) return;                      // warp-uniform
+    const int lj = last_j[r];
+    // lane 0 alone reads done[r], which it alone writes at the end
+    const bool was_done =
+        __shfl_sync(KMERAX_FULL_MASK, lane == 0 ? done[r] : 0, 0) != 0;
+    bool any_weak = false, any_solid = false;
+    int kept = -1, n_kept = 0, n_runs = 0;
+    auto push = [&](int c) {
+        const bool dup = __ballot_sync(KMERAX_FULL_MASK,
+                                       lane < n_kept && kept == c) != 0;
+        if (!dup && n_kept < kSlots) {
+            if (lane == n_kept) kept = c;
+            ++n_kept;
+        }
+    };
+    if (!was_done) {
+        const uint8_t* row = solid + r * nk;
+        uint32_t carry = 0;                  // window 32c - 1 was weak
+        int j0 = 0;                          // the open run's first window
+        // one window past nk, never weak, closes a run that reaches the end
+        for (int c = 0; c <= nk / 32; ++c) {
+            const int j = 32 * c + lane;
+            const bool s = j < nk && row[j] != 0;
+            const uint32_t sw = __ballot_sync(KMERAX_FULL_MASK, s);
+            const uint32_t ww = __ballot_sync(KMERAX_FULL_MASK,
+                                              j < nk && j <= lj && !s);
+            any_solid |= sw != 0;
+            any_weak |= ww != 0;
+            const uint32_t before = (ww << 1) | carry;   // j - 1 weak
+            carry = ww >> 31;
+            const uint32_t starts = ww & ~before;
+            uint32_t ev = starts | (~ww & before);       // starts and stops
+            while (ev && n_runs < max_runs && n_kept < kSlots) {
+                const int p = __ffs(ev) - 1;
+                ev &= ev - 1;
+                if ((starts >> p) & 1) {
+                    j0 = 32 * c + p;
+                    continue;
+                }
+                const int j1 = 32 * c + p - 1;   // the run is [j0, j1]
+                ++n_runs;
+                const bool left = j0 == 0, right = j1 == lj;
+                if (left == right) {             // interior or whole read
+                    push(left ? j1 : j0 + k - 1);
+                    push(left ? j0 + k - 1 : j1);
+                } else {                         // one edge: one candidate
+                    push(left ? j1 : j0 + k - 1);
+                }
+            }
+        }
+    }
+    const bool now_done = was_done || !any_weak || !any_solid;
+    if (lane < kSlots)
+        cands[r * kSlots + lane] = (!now_done && lane < n_kept) ? kept : -1;
+    if (lane == 0) done[r] = now_done;
+}
+
+// K7: per read, over its kSlots slots in order, on the round's bases in
+// place: the accept rule (ops/correct.py::_accept: the first best base
+// beats the current base's score, scores at least 1, and differs from the
+// current base), the conflict rule (an accepted slot within k-1 of an
+// earlier applied slot of the read is suppressed), the edit, edits += the
+// slots applied, and done |= nothing applied. In the last round (out not
+// null) also the max_edits revert against orig, n_edits (0 where
+// reverted), and the output row in the batch's type T.
+template <typename T>
+__global__ void correct_apply_kernel(
+    int32_t* __restrict__ bases, int64_t B, int L,
+    const int32_t* __restrict__ cands, const int32_t* __restrict__ scores, int32_t* __restrict__ edits,
+    int32_t* __restrict__ done, int k, const T* __restrict__ orig,
+    T* __restrict__ out, int32_t* __restrict__ n_edits, int max_edits) {
+    const int lane = threadIdx.x & 31;
+    const int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (r >= B) return;                      // warp-uniform
+    int32_t* row = bases + r * L;
+    const int ic = lane < kSlots ? cands[r * kSlots + lane] : -1;
+    bool accept = false;
+    int best_b = 0;
+    if (ic >= 0) {
+        const int4 sc = *reinterpret_cast<const int4*>(
+            scores + 4 * (r * kSlots + lane));
+        int best = sc.x;                     // the first max wins
+        if (sc.y > best) { best = sc.y; best_b = 1; }
+        if (sc.z > best) { best = sc.z; best_b = 2; }
+        if (sc.w > best) { best = sc.w; best_b = 3; }
+        const int cur = row[ic];
+        const int cur_s = cur == 0 ? sc.x : cur == 1 ? sc.y
+                        : cur == 2 ? sc.z : cur == 3 ? sc.w : 0;
+        accept = best_b != cur && best > cur_s && best >= 1;
+    }
+    uint32_t applied = 0;                    // warp-uniform, bit s: slot s
+    for (int s = 0; s < kSlots; ++s) {
+        if (!__shfl_sync(KMERAX_FULL_MASK, (int)accept, s)) continue;
+        const int is = __shfl_sync(KMERAX_FULL_MASK, ic, s);
+        const bool near = lane < s && ((applied >> lane) & 1)
+                          && abs(ic - is) <= k - 1;
+        if (!__ballot_sync(KMERAX_FULL_MASK, near)) applied |= 1u << s;
+    }
+    if ((applied >> lane) & 1) row[ic] = best_b;
+    // lane 0 alone reads edits[r], which it alone writes next
+    const int e = __shfl_sync(KMERAX_FULL_MASK, lane == 0 ? edits[r] : 0, 0)
+                  + __popc(applied);
+    if (lane == 0) {
+        edits[r] = e;
+        if (!applied) done[r] = 1;
+    }
+    if (out == nullptr) return;
+    __syncwarp();                            // the edits above, then the row
+    const bool revert = e > max_edits;
+    const int64_t o = r * L;
+    for (int i = lane; i < L; i += 32)
+        out[o + i] = revert ? orig[o + i] : (T)row[i];
+    if (lane == 0) n_edits[r] = revert ? 0 : e;
+}
+
 }  // namespace
 
 extern "C" int kmerax_correct_eval_scores(
@@ -276,4 +436,35 @@ extern "C" int kmerax_correct_eval_scores(
                          block_mask, d, m, log2_buckets, t, k, scores);
         return cudaGetLastError();
     });
+}
+
+extern "C" int kmerax_correct_candidates(
+    const uint8_t* solid, int64_t B, int nk, const int32_t* last_j,
+    int32_t* done, int k, int max_runs, int32_t* cands, cudaStream_t stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    correct_candidates_kernel<<<(unsigned)((B + kWarps - 1) / kWarps),
+                                kThreads, 0, stream>>>(
+        solid, B, nk, last_j, done, k, max_runs, cands);
+    return (int)cudaGetLastError();
+}
+
+// out_bytes: 0 in a round before the last (orig, out and n_edits unused),
+// else the size of the batch's element, 1 (int8) or 4 (int32)
+extern "C" int kmerax_correct_apply(
+    int32_t* bases, int64_t B, int L, const int32_t* cands,
+    const int32_t* scores, int32_t* edits, int32_t* done, int k,
+    const void* orig, void* out, int out_bytes, int32_t* n_edits,
+    int max_edits, cudaStream_t stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    const unsigned grid = (unsigned)((B + kWarps - 1) / kWarps);
+    if (out_bytes == 1)
+        correct_apply_kernel<int8_t><<<grid, kThreads, 0, stream>>>(
+            bases, B, L, cands, scores, edits, done, k,
+            (const int8_t*)orig, (int8_t*)out, n_edits, max_edits);
+    else
+        correct_apply_kernel<int32_t><<<grid, kThreads, 0, stream>>>(
+            bases, B, L, cands, scores, edits, done, k,
+            (const int32_t*)orig, out_bytes ? (int32_t*)out : nullptr,
+            n_edits, max_edits);
+    return (int)cudaGetLastError();
 }

@@ -1,13 +1,14 @@
 """Correct stage (port of kmerax/pipeline/run.py::make_correct_step and
 run_correct, single process).
 
-Each batch runs ops/correct.py::correct_batch against the count table, in
-the counter layout it was counted in (`CountState.counter`, i32 or p16):
-the round-start solidity through kernel K2 and the candidate scoring
-through kernel K3 on the card (their plain versions on the CPU). With
-`cfg.wire_pack`, an N-free batch crosses on the 2-bit wire both ways
-(io/wire.py): unpacked on the device before the step, its corrected rows
-packed there and unpacked on the host. Corrected reads are written with
+Each batch runs ops/correct.py::correct_batch's rounds against the count
+table, in the counter layout it was counted in (`CountState.counter`, i32
+or p16), as four kernels a round with no host sync (K2 the round-start
+solidity, K6 the candidate slots, K3 their scores, K7 the apply:
+ops/correct_kernels.py::make_slot_step; their plain versions on the
+CPU). With `cfg.wire_pack`, an N-free batch crosses on the 2-bit wire both
+ways (io/wire.py): unpacked on the device before the step, its corrected
+rows packed there and unpacked on the host. Corrected reads are written with
 names and qualities byte-identical (DESIGN.md §11).
 
 `use_exact` corrects against the exact spectrum instead (`correct
@@ -26,14 +27,14 @@ batch before a rank sends its rows (io/wire.py::to_device_batch).
 
 The spectrum path (`_spectrum_step`, chosen once a stage, on one device as
 on a mesh), in the JAX package's order: "exact" where `use_exact` asks;
-else "fused", the K2/K3 step against the replicated table, wherever one
+else "fused", the kernel step against the replicated table, wherever one
 exists; else "routed-sharded", the plain correction whose probes go by
 all-to-all to their bucket owner's merged slice (spectrum/sharded.py::
 routed_query_fn), where the table is past the replicate budget and
-mesh_bucket > 1; else the JAX package's error. Every path is one wrapper
-around correct_batch (`correct_step`) given its solidity source. Across
-hosts with per-host I/O each host corrects its own input shards on its
-local ranks instead (see run_correct).
+mesh_bucket > 1; else the JAX package's error. The exact and routed paths
+are one wrapper around correct_batch (`correct_step`) given their
+solidity source. Across hosts with per-host I/O each host corrects its
+own input shards on its local ranks instead (see run_correct).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from kmerax_torch.io import wire
 from kmerax_torch.io.batcher import BackgroundBatcher
 from kmerax_torch.io.fastq import FastqWriter
 from kmerax_torch.ops.correct import correct_batch
-from kmerax_torch.ops.correct_kernels import make_eval_fn, make_window_fn
+from kmerax_torch.ops.correct_kernels import make_slot_step
 from kmerax_torch.pipeline.count import CountState, bloom_params
 from kmerax_torch.spectrum.exact import lookup_sorted
 from kmerax_torch.utils import tracing
@@ -66,27 +67,25 @@ LAST_CORRECT_PATH = None
 LAST_CORRECT_SHARDS = None
 
 
-def correct_step(k, t, *, rounds, max_runs, max_edits, solid_fn=None,
-                 window_fn=None, eval_fn=None, width_fn=None):
+def correct_step(k, t, *, rounds, max_runs, max_edits, solid_fn,
+                 width_fn=None):
     """step(bases, lengths) -> (corrected int8 (B, L), n_edits (B,)):
     ops/correct.py::correct_batch with the solidity source given (its
-    solid_fn, window_fn, eval_fn and width_fn)."""
+    solid_fn and width_fn)."""
     def step(bases, lengths):
         fixed, ne = correct_batch(bases, lengths, k, t, solid_fn,
                                   rounds=rounds, max_runs=max_runs,
-                                  max_edits=max_edits, eval_fn=eval_fn,
-                                  window_fn=window_fn, width_fn=width_fn)
+                                  max_edits=max_edits, width_fn=width_fn)
         return fixed.to(bases.dtype), ne
 
     return step
 
 
 def make_correct_step(params, table, t, **kw):
-    """The fused step on the table's device: the round-start solidity
-    through K2, the candidates' scores through K3."""
-    return correct_step(params.k, t,
-                        window_fn=make_window_fn(params, table, t),
-                        eval_fn=make_eval_fn(params, table, t), **kw)
+    """The fused step on the table's device: the kernel step
+    (ops/correct_kernels.py::make_slot_step: K2, K6, K3, K7 a round, no
+    host sync; their plain versions on the CPU)."""
+    return make_slot_step(params, table, t, **kw)
 
 
 def _spectrum_step(cfg: KmeraxConfig, state: CountState, mesh, device,

@@ -36,7 +36,7 @@ LAUNCHES = {"bloom_insert": 0, "bloom_insert_rows": 0,
             "bloom_query_solid": 0, "correct_eval_scores": 0,
             "banded_align_scores": 0, "bloom_insert_p16": 0,
             "bloom_query_solid_p16": 0, "correct_eval_scores_p16": 0,
-            "solid_join": 0}
+            "solid_join": 0, "correct_candidates": 0, "correct_apply": 0}
 
 
 def reset_launches() -> None:
@@ -166,10 +166,14 @@ def lib() -> ctypes.CDLL:
     L.kmerax_banded_align_scores.argtypes = [
         P, I, P, I, P, P, I64, I, I, P, P]
     L.kmerax_solid_join.argtypes = [P, I64, I, P, P, I64, P, P, P, I64, P]
+    L.kmerax_correct_candidates.argtypes = [P, I64, I, P, P, I, I, P, P]
+    L.kmerax_correct_apply.argtypes = [
+        P, I64, I, P, P, P, P, I, P, P, I, P, I, P]
     for fn in (L.kmerax_bloom_insert, L.kmerax_bloom_insert_rows,
                L.kmerax_bloom_query_solid,
                L.kmerax_correct_eval_scores, L.kmerax_banded_align_scores,
-               L.kmerax_solid_join):
+               L.kmerax_solid_join, L.kmerax_correct_candidates,
+               L.kmerax_correct_apply):
         fn.restype = I
     L.kmerax_cuda_error_string.argtypes = [I]
     L.kmerax_cuda_error_string.restype = ctypes.c_char_p

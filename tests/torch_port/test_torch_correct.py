@@ -5,6 +5,8 @@ with kernel K2's window_fn; the correct stage fed the JAX package's count
 state through count_state_from_numpy, and its K2 calls. Exact: tolerance 0.
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -20,13 +22,14 @@ from kmerax.pipeline import run_correct as j_run_correct
 from kmerax.pipeline import run_count as j_run_count
 from kmerax.spectrum import bloom as jbloom
 from kmerax_torch.config import KmeraxConfig
-from kmerax_torch.ops.correct import _eval_entries, correct_batch
+from kmerax_torch.ops.correct import _accept, _eval_entries, correct_batch
 from kmerax_torch.ops import correct_kernels
-from kmerax_torch.ops.correct_kernels import correct_eval_scores, \
-    make_eval_fn, make_window_fn
+from kmerax_torch.ops.correct_kernels import correct_eval_scores
 from kmerax_torch.pipeline.correct import run_correct
 from kmerax_torch.pipeline.count import count_state_from_numpy, run_count
 from kmerax_torch.spectrum import bloom
+from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid, \
+    bloom_query_solid_plain
 from kmerax_torch.utils import cuda
 from sim import ecoli_like, make_fastq
 
@@ -54,6 +57,29 @@ def _j_solid(jp, table, t_solid):
 def _t_solid(k, table, t_solid):
     p = bloom.BloomParams(k, LW, 4)
     return lambda cw, v: bloom.query_solid(p, table, t_solid, cw, v)
+
+
+def make_eval_fn(params, table, t_solid):
+    """correct_batch's eval_fn scoring through the K3 wrapper."""
+    def eval_fn(bases, lengths, last_j, ent_r, ent_i):
+        scores = correct_eval_scores(
+            params, table, t_solid, bases, lengths, last_j,
+            ent_r.to(torch.int32), ent_i.to(torch.int32))
+        return _accept(scores, bases, ent_r, ent_i)
+
+    return eval_fn
+
+
+def make_window_fn(params, table, t_solid):
+    """correct_batch's window_fn: the round-start solidity through the K2
+    wrapper, and the windows that start in [0, last_j]."""
+    def window_fn(bases, last_j):
+        solid = bloom_query_solid(table, bases, last_j, params, t_solid)
+        j = torch.arange(solid.shape[1], dtype=torch.int32,
+                         device=bases.device)
+        return solid, j[None, :] <= last_j[:, None]
+
+    return window_fn
 
 
 def _entries(errs, k, Q=200, seed=1):
@@ -225,7 +251,6 @@ def test_run_correct_calls_k2_once_per_round(tmp_path, monkeypatch, rounds):
         calls.append((bases.dtype, tuple(bases.shape), last_j.dtype))
         return bloom_query_solid(table, bases, last_j, params, t_solid)
 
-    from kmerax_torch.spectrum.bloom_kernels import bloom_query_solid
     monkeypatch.setattr(correct_kernels, "bloom_query_solid", spy)
     kw = dict(k=31, bloom_log2_width=16, batch_reads=64, max_read_len=100,
               exact_capacity=1 << 15, rounds=rounds)
@@ -236,3 +261,157 @@ def test_run_correct_calls_k2_once_per_round(tmp_path, monkeypatch, rounds):
     assert len(calls) == rounds * n_batches
     assert set(calls) == {(torch.int32, (64, 100), torch.int32)}
     assert stats["reads"] == len(reads) and stats["edited_reads"] > 0
+
+
+# ---- the kernel step's slot grid: K2 -> K6 -> K3 over every slot -> K7 ----
+
+SLOT_KW = dict(max_runs=3, max_edits=4)     # small, so the caps are reached
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_batch(k, all_solid=False, seed=7):
+    """(reads, lengths, JAX table) at L = 4k + 30 from a 3 kb genome whose
+    reads (all inserted) make nearly every window solid at t=2; read i of
+    kind i % 8 carries: 0 single errors k+2 apart (more than max_runs
+    runs, past max_edits), 1 error pairs k/2 apart (more than max_cands
+    candidates), 2 an error in the first three bases (left-edge run), 3 in
+    the last three (right-edge run), 4 one error in a read of k+3 bases
+    (whole-read-weak), 5 two errors k-2..k+1 apart (the conflict rule's
+    edge), 6 an error and Ns, or a read shorter than k, 7 none."""
+    rng = np.random.default_rng(seed + k)
+    B, L = 48, 4 * k + 30
+    genome = rng.integers(0, 4, 3000).astype(np.int32)
+    clean = genome[rng.integers(0, 3000 - L, 4 * B)[:, None]
+                   + np.arange(L)]
+    jp = jbloom.BloomParams(k=k, log2_width=LW, num_hashes=4)
+    words, valid = j_extract(jnp.asarray(clean), k)
+    table = jbloom.insert(jp, jnp.zeros(jp.width, jnp.int32),
+                          j_canonical(words, k)[0], valid)
+    reads, lengths = clean[:B].copy(), np.full(B, L, np.int32)
+    if all_solid:
+        return reads, lengths, table
+
+    def sub(i, ps):
+        ps = np.asarray(ps)
+        reads[i, ps] = (reads[i, ps] + rng.integers(1, 4, ps.size)) % 4
+
+    for i in range(B):
+        kind = i % 8
+        if kind == 0:
+            sub(i, np.arange(rng.integers(3, 10), L, k + 2))
+        elif kind == 1:
+            starts = np.arange(rng.integers(3, 10), L - k // 2, 2 * k)
+            sub(i, np.concatenate([starts, starts + k // 2]))
+        elif kind == 2:
+            sub(i, [rng.integers(0, 3), L // 2])
+        elif kind == 3:
+            sub(i, [L - 1 - rng.integers(0, 3)])
+        elif kind == 4:
+            lengths[i] = k + 3
+            sub(i, [5])
+        elif kind == 5:
+            p = rng.integers(0, L - k - 2)
+            sub(i, [p, p + k - 2 + (i // 8) % 4])
+        elif kind == 6 and i % 16 == 6:
+            lengths[i] = rng.integers(1, k)
+        elif kind == 6:
+            sub(i, [rng.integers(0, L)])
+            reads[i, rng.integers(0, L, 2)] = 4
+    for i in range(B):
+        reads[i, lengths[i]:] = 4
+    return reads, lengths, table
+
+
+@functools.lru_cache(maxsize=None)
+def _j_slot_ref(k, rounds, all_solid=False):
+    reads, lengths, table = _slot_batch(k, all_solid)
+    jp = jbloom.BloomParams(k=k, log2_width=LW, num_hashes=4)
+    ref, ref_ne = j_correct_batch(jnp.asarray(reads), jnp.asarray(lengths),
+                                  k, 2, solid_fn=_j_solid(jp, table, 2),
+                                  rounds=rounds, **SLOT_KW)
+    return np.asarray(ref), np.asarray(ref_ne)
+
+
+def _port_table(table, counter):
+    tt = t(table).to(torch.int32)
+    return tt if counter == "i32" else bloom.pack16(tt)
+
+
+def _runs(solid, last_j):
+    """Per read: (number of weak runs, has a left-edge run, a right-edge
+    one, a whole-read one) of the (nk,) round-start solidity."""
+    out = []
+    for s, lj in zip(n(solid), n(last_j)):
+        weak = np.zeros(len(s) + 2, bool)
+        weak[1:max(lj, -1) + 2] = ~s[:max(lj, -1) + 1]
+        d = np.diff(weak.astype(np.int8))
+        j0, j1 = np.nonzero(d == 1)[0], np.nonzero(d == -1)[0] - 1
+        out.append((len(j0), any((j0 == 0) & (j1 < lj)),
+                    any((j0 > 0) & (j1 == lj)), any((j0 == 0) & (j1 == lj))))
+    return out
+
+
+@pytest.mark.parametrize("counter", ["i32", "p16"])
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("k", [25, 31, 33, 63])
+def test_slot_step_matches_correct_batch_and_jax(k, rounds, counter):
+    """The kernel step's composition on the CPU (K2's, K6's, K3's and K7's
+    plain versions, K3 over every slot of the grid) == correct_batch ==
+    the JAX package's correction, on reads that reach every rule."""
+    reads, lengths, table = _slot_batch(k)
+    tt = _port_table(table, counter)
+    p = bloom.BloomParams(k, LW, 4, counter=counter)
+    bases, lens = t(reads).to(torch.int8), t(lengths)
+    cuda.reset_launches()
+    got, got_ne = correct_kernels.make_slot_step(
+        p, tt, 2, rounds=rounds, **SLOT_KW)(bases, lens)
+    assert got.dtype == torch.int8 and got_ne.dtype == torch.int32
+    assert sum(cuda.LAUNCHES.values()) == 0        # plain versions only
+    ref, ref_ne = _j_slot_ref(k, rounds)
+    np.testing.assert_array_equal(n(got), ref)
+    np.testing.assert_array_equal(n(got_ne), ref_ne)
+    plain, plain_ne = correct_batch(bases, lens, k, 2,
+                                    _t_solid(k, t(table).to(torch.int32), 2),
+                                    rounds=rounds, **SLOT_KW)
+    np.testing.assert_array_equal(n(got), n(plain))
+    np.testing.assert_array_equal(n(got_ne), n(plain_ne))
+    # the fixture reaches every rule
+    last_j = lens - k
+    solid = bloom_query_solid_plain(tt, t(reads), last_j, p, 2)
+    runs = _runs(solid, last_j)
+    assert max(r[0] for r in runs) > SLOT_KW["max_runs"]
+    assert all(any(r[i] for r in runs) for i in (1, 2, 3))
+    assert (lengths < k).any() and (reads[lengths >= k] == 4).any()
+    changed = (n(got) != reads).any(axis=1)
+    assert changed.sum() > 8 and (ref_ne > 0).sum() == changed.sum()
+    if rounds == 2:           # kind 0 passes max_edits and is reverted
+        assert ((ref_ne == 0) & ~changed)[::8].any()
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_slot_step_all_solid_batch(k):
+    """A batch with no weak window: every slot dead in round 1, every read
+    done, nothing edited, the rows returned as they came."""
+    reads, lengths, table = _slot_batch(k, all_solid=True)
+    p = bloom.BloomParams(k, LW, 4)
+    tt = t(table).to(torch.int32)
+    got, got_ne = correct_kernels.make_slot_step(
+        p, tt, 2, rounds=2, **SLOT_KW)(t(reads).to(torch.int8), t(lengths))
+    ref, ref_ne = _j_slot_ref(k, 2, all_solid=True)
+    np.testing.assert_array_equal(n(got), ref)
+    np.testing.assert_array_equal(n(got), reads)
+    assert not n(got_ne).any() and not ref_ne.any()
+
+
+@pytest.mark.parametrize("k", [25, 63])
+def test_correct_batch_width_is_free(k):
+    """correct_batch compacted to the whole slot grid (B * max_cands
+    entries) == its default width: the invariant the slot grid rests on."""
+    reads, lengths, table = _slot_batch(k)
+    tt = t(table).to(torch.int32)
+    args = (t(reads).to(torch.int8), t(lengths), k, 2, _t_solid(k, tt, 2))
+    want, want_ne = correct_batch(*args, **SLOT_KW)
+    got, got_ne = correct_batch(*args, width_fn=lambda q: 4 * len(reads),
+                                **SLOT_KW)
+    np.testing.assert_array_equal(n(got), n(want))
+    np.testing.assert_array_equal(n(got_ne), n(want_ne))
