@@ -2,7 +2,10 @@
 by the names in BENCHMARK.json: a configuration is the JSON file its entry
 names, a traffic mix is `benchmark/mixes/<traffic>.json`, a per-layer
 metric is `benchmark/metrics/<name>.py` with a `read(run)` function. A
-later cell, mix or metric is new files and new entries, never an edit."""
+later cell, mix or metric is new files and new entries, never an edit.
+A configuration may name a ("data", "bucket") mesh of D x S cards
+(`mesh_data`, `mesh_bucket`, both 1 by default); its cells ask for D·S
+chips."""
 
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 from ..reference.compare import check_job
+from .jobs import mesh
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -52,6 +56,11 @@ def cell(name: str, root: Path = ROOT) -> Cell:
     with open(root / "benchmark" / "mixes" / f"{w['traffic']}.json") as f:
         mix = json.load(f)
     check_job(config, mix["stages"])
+    D, S = mesh(config)
+    if D * S > 1 and D * S != w["chips"]:
+        raise ValueError(f"{name}: configuration {w['config']} names a "
+                         f"{D} x {S} mesh, {D * S} cards, but the cell asks "
+                         f"for {w['chips']} chips")
     return Cell(name, w["chips"], config, mix,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
                 [m for m in bench["per_layer"] if _reports(m, name)])

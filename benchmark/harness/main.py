@@ -10,7 +10,14 @@ With `--trace 1` one more job runs after the window under the program's
 profiler (KMERAX_TRACE_DIR); the device numbers come from it, the stage
 times from the window's jobs. The outputs of the window's last job are
 compared with the reference once the window has closed, the memory peak
-has been read and the program's device state has been let go."""
+has been read and the program's device state has been let go.
+
+A cell whose configuration names a mesh runs each job on D·S spawned ranks,
+one card each (jobs.py); this process then keeps off the cards until the
+window has closed. The device line counts the cell's chips and takes the
+largest peak of any rank's card over the window's jobs, and a traced run
+reads rank 0's traces, the writer's, whose stage records metrics.jsonl
+holds."""
 
 from __future__ import annotations
 
@@ -24,13 +31,6 @@ from dataclasses import dataclass
 from pathlib import Path
 
 from . import cells, jobs, trace
-
-# top-level module names the run may not hold once its window has closed:
-# the JAX package beside the port, JAX itself, and the repo's JAX-era
-# tools; nor the program's own bench presets (`kmerax_torch.bench`), which
-# the benchmark does not use
-FORBIDDEN = {"jax", "jaxlib", "flax", "kmerax", "oracle", "chip_smoke"}
-FORBIDDEN_PREFIXES = ("kmerax_torch.bench",)
 
 
 @dataclass
@@ -55,12 +55,6 @@ class Run:
 
 def say(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def forbidden_modules() -> list:
-    return sorted(m for m in list(sys.modules)
-                  if m.split(".")[0] in FORBIDDEN
-                  or m.startswith(FORBIDDEN_PREFIXES))
 
 
 def _write_inputs(ds, workdir: str, pairs: int | None, tag: str) -> list:
@@ -93,8 +87,11 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             raise SystemExit(f"{workload} needs {c.chips} cards, "
                              f"{torch.cuda.device_count()} present")
     dev = torch.device(device)
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
-        else (lambda: None)
+    D, S = jobs.mesh(cfg)
+    on_mesh = D * S > 1
+    # a mesh job's ranks have left their cards when the CLI returns
+    sync = (lambda: torch.cuda.synchronize(dev)) \
+        if dev.type == "cuda" and not on_mesh else (lambda: None)
     parts = {"imports_s": time.perf_counter() - t_start}
 
     t = time.perf_counter()
@@ -102,9 +99,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
         from kmerax_torch.utils.cuda import build, lib
 
         _, parts["nvcc_s"] = build()
-        lib()
-        torch.zeros(1, device=dev)
-        sync()
+        if not on_mesh:
+            lib()
+            torch.zeros(1, device=dev)
+            sync()
     from kmerax_torch.io.native import get_lib
     get_lib()
     parts["library_s"] = time.perf_counter() - t
@@ -121,13 +119,13 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
         warm_inputs = _write_inputs(ds, base, cfg["batch_reads"], "warm")
         parts["dataset_s"] = time.perf_counter() - t
         return _measure(c, cfg, ds, inputs, warm_inputs, base, seconds,
-                        traced, dev, sync, parts, t_start, root)
+                        traced, dev, sync, parts, t_start, root, on_mesh)
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
 
 def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
-             sync, parts, t_start, root) -> dict:
+             sync, parts, t_start, root, on_mesh) -> dict:
     import torch
 
     from ..reference import compare
@@ -140,7 +138,7 @@ def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
                  os.path.join(base, "warm"), 2 * cfg["batch_reads"], rec,
                  sync)
         parts["warmup_s"] = time.perf_counter() - t
-        if dev.type == "cuda":
+        if dev.type == "cuda" and not on_mesh:
             torch.cuda.reset_peak_memory_stats(dev)
         n_reads = ds.n_reads
         out = os.path.join(base, "out")
@@ -156,8 +154,14 @@ def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
             if el + window[-1].wall_s > seconds:
                 break
         window_s = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
+        # a mesh job's hand-back is the harness's work, not the program's
+        harness_s = sum(j.handback.handover_s + j.handback.read_s
+                        for j in window if j.handback is not None)
+        if on_mesh:
+            peak = max(p for j in window for p in j.handback.peaks)
+        else:
+            peak = (torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else 0)
         last = window[-1]
         prog_fastq = []
         for i in range(len(inputs)):
@@ -171,17 +175,8 @@ def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
 
         profiled = None
         if traced:
-            tdir = os.path.join(base, "trace")
-            os.environ["KMERAX_TRACE_DIR"] = tdir
-            try:
-                prof = os.path.join(base, "prof")
-                profiled = jobs.run(jobs.argv(cfg, c.mix, inputs, prof,
-                                              dev.type),
-                                    prof, n_reads, rec, sync)
-            finally:
-                del os.environ["KMERAX_TRACE_DIR"]
-            profiled.counts = []
-            profiled.trace = trace.read_dir(tdir)
+            profiled = _profiled(cfg, c.mix, inputs, base, dev.type, rec,
+                                 sync, n_reads)
     finally:
         rec.close()
 
@@ -202,13 +197,17 @@ def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
     say(f"setup_s {setup_s:.4f}; window {window_s:.4f} s, {len(window)} "
         f"jobs: " + ", ".join(f"{j.wall_s:.4f}" for j in window))
     for i, j in enumerate(window):
-        say(f"job {i} wall {j.wall_s:.4f} s: " + ", ".join(
+        hb = j.handback
+        hand = "" if hb is None else (
+            f", handover_s {hb.handover_s:.4f} (read after the wall "
+            f"{hb.read_s:.4f} s; both out of reads_per_s's time)")
+        say(f"job {i} wall {j.wall_s:.4f} s{hand}: " + ", ".join(
             f"{s['stage']} {s['wall_s']}" for s in j.stages))
     say(f"reference_s {ref_s:.4f}")
 
     result = {"correct": all(v == 0 for v in checks.values()),
               "attempted": len(window), "failed": 0, "metrics": {},
-              "device": _device(dev, peak)}
+              "device": _device(dev, peak, c.chips)}
     if traced:
         r = Run(cfg, c.mix, [len(b) for b in ds.bases], window, profiled)
         med = statistics.median(j.wall_s for j in window)
@@ -227,20 +226,40 @@ def _measure(c, cfg, ds, inputs, warm_inputs, base, seconds, traced, dev,
                 profiled, recount_in_assemble=not cfg.get("k2")))}
     else:
         for m in c.end_to_end:
-            v = {"reads_per_s": n_reads * len(window) / window_s,
+            v = {"reads_per_s": n_reads * len(window)
+                 / (window_s - harness_s),
                  "setup_s": setup_s}.get(m["name"])
             if v is not None:
                 result["metrics"][m["name"]] = {"value": v,
                                                 "unit": m["unit"]}
     result["checks"] = {k: {"value": v, "limit": 0}
                         for k, v in checks.items()}
-    bad = forbidden_modules()
+    bad = jobs.forbidden_modules()
     if bad:
         say(f"forbidden modules loaded: {bad}")
         raise SystemExit(3)
     for k, v in checks.items():
         say(f"check {k} {v} limit 0")
     return result
+
+
+def _profiled(cfg, mix, inputs, base, device: str, rec, sync,
+              n_reads) -> jobs.JobRecord:
+    """One more job under the program's profiler (KMERAX_TRACE_DIR), with
+    its stage traces read: on a mesh, rank 0's, and the other ranks' are
+    deleted unread."""
+    tdir = os.path.join(base, "trace")
+    os.environ["KMERAX_TRACE_DIR"] = tdir
+    try:
+        prof = os.path.join(base, "prof")
+        job = jobs.run(jobs.argv(cfg, mix, inputs, prof, device), prof,
+                       n_reads, rec, sync)
+    finally:
+        del os.environ["KMERAX_TRACE_DIR"]
+    job.counts = []
+    D, S = jobs.mesh(cfg)
+    job.trace = trace.read_rank0(tdir) if D * S > 1 else trace.read_dir(tdir)
+    return job
 
 
 def _count_out(x):
@@ -285,11 +304,11 @@ def _untraced(job, recount_in_assemble: bool) -> list:
     return out
 
 
-def _device(dev, peak: int) -> dict:
+def _device(dev, peak: int, count: int) -> dict:
     import torch
 
     if dev.type != "cuda":
-        return {"platform": "cpu", "kind": "cpu", "count": 1,
+        return {"platform": "cpu", "kind": "cpu", "count": count,
                 "memory_peak_bytes": 0}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-            "count": 1, "memory_peak_bytes": int(peak)}
+            "count": count, "memory_peak_bytes": int(peak)}

@@ -3,12 +3,15 @@
 The program writes one Chrome trace a stage (`KMERAX_TRACE_DIR/<stage>/`,
 utils/tracing.py: the count, correct and align loops; a re-count writes a
 second count trace). Each is read once into arrays of its device
-operations (kernels, copies, sets) and host operations, then deleted."""
+operations (kernels, copies, sets) and host operations, then deleted. A
+mesh job's ranks write under `KMERAX_TRACE_DIR/rank<r>/<stage>/`; only
+rank 0's are read."""
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from dataclasses import dataclass
 
 import numpy as np
@@ -88,6 +91,16 @@ def read_dir(trace_dir: str) -> list[StageTrace]:
                 float(t.host_ts.min()) if len(t.host_ts) else 0.0)
             found.append((first, t))
     return [t for _, t in sorted(found, key=lambda x: x[0])]
+
+
+def read_rank0(trace_dir: str) -> list[StageTrace]:
+    """A mesh job's traces: rank 0's (`<trace_dir>/rank0/`), the writer's,
+    whose stage records the job's metrics.jsonl holds; every rank's are
+    deleted, the others' unread."""
+    try:
+        return read_dir(os.path.join(trace_dir, "rank0"))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
 
 
 def short(name: str, n: int = 120) -> str:

@@ -8,7 +8,7 @@ import re
 import pytest
 
 from benchmark import roofline, sizing
-from benchmark.harness import cells
+from benchmark.harness import cells, jobs
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -49,7 +49,8 @@ def test_cell_files_exist_and_load(w):
     c = cells.cell(w["name"])
     assert c.config["name"] == w["config"]
     assert c.mix["name"] == w["traffic"]
-    assert w["chips"] == 1
+    D, S = jobs.mesh(c.config)      # a cell takes its mesh's cards, else 1
+    assert w["chips"] == D * S
 
 
 def test_every_cell_reports_setup_another_end_to_end_and_a_layer():

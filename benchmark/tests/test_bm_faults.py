@@ -11,14 +11,23 @@ import bm_tiny
 ECOLI, CHR21 = "ecoli50x.count_correct", "chr21_30x.assemble_validate"
 
 
-def _unchanged(monkeypatch):
-    """The correct step returns the reads as they came in."""
+def _step_changed(monkeypatch, change):
+    """The correct step of every cell (the fused one, `make_correct_step`)
+    with `change` applied to what it returns."""
     from kmerax_torch.pipeline import correct as mod
 
-    def step(bases, lengths, *a, **kw):
-        return bases.to(torch.int32), torch.zeros(
-            bases.shape[0], dtype=torch.int32, device=bases.device)
-    monkeypatch.setattr(mod, "correct_batch", step)
+    orig = mod.make_correct_step
+
+    def make(*a, **kw):
+        step = orig(*a, **kw)
+        return lambda bases, lengths: change(bases, *step(bases, lengths))
+    monkeypatch.setattr(mod, "make_correct_step", make)
+
+
+def _unchanged(monkeypatch):
+    """The correct step returns the reads as they came in."""
+    _step_changed(monkeypatch, lambda bases, fixed, ne: (
+        bases.to(fixed.dtype), torch.zeros_like(ne)))
 
 
 def _half_batch(monkeypatch):
@@ -36,16 +45,11 @@ def _half_batch(monkeypatch):
 
 def _altered_read(monkeypatch):
     """The correct step alters one base of each batch's first read."""
-    from kmerax_torch.pipeline import correct as mod
-
-    orig = mod.correct_batch
-
-    def step(*a, **kw):
-        fixed, ne = orig(*a, **kw)
+    def alter(bases, fixed, ne):
         fixed = fixed.clone()
         fixed[0, 0] = (fixed[0, 0] + 1) % 4
         return fixed, ne
-    monkeypatch.setattr(mod, "correct_batch", step)
+    _step_changed(monkeypatch, alter)
 
 
 def _altered_unitig(monkeypatch):
